@@ -3,8 +3,9 @@
 A port of the JAX package `cornelis_tpu` (which stays as the reference)
 to PyTorch, with the TPU's Pallas megakernel rewritten as a hand-written
 CUDA kernel for Hopper (ops/csrc/megakernel.cu). This package imports
-torch and numpy, never jax. So far it runs the path integrator with the
-uniform sampler on spheres and planes.
+torch and numpy, never jax. So far it runs the path and NEE integrators
+with the uniform and Sobol samplers on spheres and planes, and the
+dynamic-scene render (ops/dynamic.py).
 """
 
 from .camera import Camera, generate_rays, look_at_host

@@ -2,7 +2,8 @@
 
     python -m cornelis_tpu_torch                     # Cornell box, 512x512, 256 spp, CUDA kernel
     python -m cornelis_tpu_torch --scene sphere-plane --spp 64 -o out.png
-    python -m cornelis_tpu_torch --device cpu --backend torch --width 64 --height 64
+    python -m cornelis_tpu_torch --integrator nee --sampler sobol
+    python -m cornelis_tpu_torch --device cpu --width 64 --height 64   # the plain version
 
 A small subset of `cornelis_tpu/cli.py`; its other flags come later.
 """
@@ -35,12 +36,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-depth", type=int, default=d.max_depth)
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("-o", "--output", default=d.output, help="Output PNG path.")
-    p.add_argument("--device", default=d.device, help="torch device, e.g. cuda or cpu.")
     p.add_argument(
-        "--backend",
-        choices=("cuda", "torch"),
-        default=d.backend,
-        help="'cuda': the hand-written kernel; 'torch': its plain version.",
+        "--integrator",
+        choices=("path", "nee"),
+        default=d.integrator,
+        help="'path' replicates the reference; 'nee' adds MIS-weighted light sampling.",
+    )
+    p.add_argument("--sampler", choices=("uniform", "sobol"), default=d.sampler)
+    p.add_argument(
+        "--nee-clamp",
+        type=float,
+        default=d.nee_clamp,
+        metavar="RADIANCE",
+        help="NEE per-bounce clamp base ('inf' disables; default 16 x brightest emission).",
+    )
+    p.add_argument(
+        "--device",
+        default=d.device,
+        help="torch device: cuda runs the kernel, cpu its plain version.",
     )
     return p
 
@@ -64,8 +77,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         max_depth=args.max_depth,
         seed=args.seed,
         output=args.output,
+        sampler=args.sampler,
+        integrator=args.integrator,
+        nee_clamp=args.nee_clamp,
         device=args.device,
-        backend=args.backend,
     )
     result = RenderSession(load_scene(args.scene), options).render()
     return 0 if result.status == RenderStatus.DONE else 1

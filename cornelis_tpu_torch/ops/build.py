@@ -2,8 +2,8 @@
 
 Each `.cu` file has a plain C interface and is compiled by nvcc alone (no
 PyTorch headers, so a build takes seconds), then loaded with ctypes. The
-library's file name carries a hash of the source and the flags, so an
-edited source builds anew; it is written to a temporary name and moved
+library's file name carries a hash of the sources under csrc/ and the
+flags, so an edited source builds anew; it is written to a temporary name and moved
 into place, so a concurrent or interrupted build never leaves a partial
 library behind. Without nvcc, or when nvcc fails, this raises.
 """
@@ -29,6 +29,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+# Flags of one library beyond NVCC_FLAGS. The NEE instantiations round every
+# product and sum on its own, as the plain torch version does (the reason
+# is in csrc/megakernel.cu).
+EXTRA_FLAGS = {"megakernel_nee": ("-fmad=false",)}
+# The libraries the port's kernels live in, in csrc/<name>.cu.
+LIBRARIES = ("megakernel", "megakernel_nee", "lights")
 
 # nvcc's output (the ptxas register and spill report) of the builds made
 # by this process, by source name.
@@ -45,7 +51,10 @@ def _nvcc() -> str:
 def build_library(name: str, force: bool = False) -> Path:
     """Compile csrc/<name>.cu unless its library exists (or `force`)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path in sorted(CSRC.iterdir()):  # a source may include another
+        digest.update(path.name.encode() + path.read_bytes())
     so = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if so.exists() and not force:
         return so
@@ -54,7 +63,7 @@ def build_library(name: str, force: bool = False) -> Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+            [_nvcc(), *flags, "-o", tmp, str(src)],
             capture_output=True,
             text=True,
         )
@@ -71,3 +80,18 @@ def build_library(name: str, force: bool = False) -> Path:
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build_library(name)))
+
+
+def build_all(force: bool = False) -> dict:
+    """Build every library at once, one nvcc each, in parallel; returns
+    {name: (library path, seconds)}. Raises if any build fails."""
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(name):
+        t0 = time.perf_counter()
+        return build_library(name, force), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        futures = {name: pool.submit(one, name) for name in LIBRARIES}
+        return {name: f.result() for name, f in futures.items()}

@@ -1,29 +1,52 @@
 // Path-tracing megakernel for Hopper (sm_90a): the whole path of one ray
 // per thread, from the camera jitter to the last bounce.
 //
-// Replaces cornelis_tpu/ops/pallas_integrator.py::_make_kernel in mode
-// "path" with sampler "uniform" (launched there by _build_renderer through
-// pl.pallas_call). It computes what that kernel computes, draw for draw:
-// Threefry-2x32 uniforms keyed by (pixel, sample, stream, pair), camera
-// jitter and generate_rays, then up to max_depth bounces of closest hit
-// (two-phase sphere scan, then finite planes, under the min_hit_t guard),
-// emission, layered BSDF sampling, Russian roulette and the throughput
-// update. Every float expression keeps the JAX package's order of
+// Replaces cornelis_tpu/ops/pallas_integrator.py::_make_kernel (launched
+// there by _build_renderer through pl.pallas_call) on spheres and planes,
+// in modes "path" and "nee" with samplers "uniform" and "sobol", and the
+// bounce loop of cornelis_tpu/ops/pallas_dynamic.py::_make_kernel_dyn,
+// which differs only in its light table (ops/lights.py builds both). Mode
+// and sampler are template parameters: four instantiations of one kernel.
+// This file instantiates mode "path" (entry point cornelis_megakernel);
+// megakernel_nee.cu includes it with CORNELIS_MEGAKERNEL_NEE defined and
+// instantiates mode "nee" (cornelis_megakernel_nee), compiled without FMA
+// contraction (ops/build.py). Why: in the reference scenes a camera ray
+// meets a sphere about 1000 units away, and the quadratic's cancellation
+// leaves the hit point up to ~1e-3 off the surface, more than the min_hit_t
+// guard. A point left inside its sphere shadows its own light sample, so
+// NEE flips a shadow ray wherever two versions round a hit point
+// differently: with contraction, a few % of rays against the plain torch
+// version. Path mode has no shadow ray and keeps the contracted code.
+//
+// It computes what those kernels compute, draw for draw: Threefry-2x32
+// uniforms keyed by (pixel, sample, stream, pair), or Owen-scrambled Sobol
+// pairs keyed by (pixel seed, sample, stream, pair); camera jitter and
+// generate_rays; then up to max_depth bounces of closest hit (two-phase
+// sphere scan, then finite planes, under the min_hit_t guard), emission,
+// layered BSDF sampling, Russian roulette and the throughput update. Mode
+// "nee" adds, per bounce, the MIS weight and depth-aware clamp of emission
+// found by BSDF sampling, a light chosen by the table's cumulative
+// probability, a sphere-cone or plane-area sample, a shadow ray, and the
+// MIS-weighted light contribution; it divides by the sampler's true
+// density. Every float expression keeps the JAX package's order of
 // operations; nvcc's default FMA contraction is the one known difference.
 //
 // What bounds it on this card: FP32 issue rate and warp divergence, not
 // bytes. A ray reads no input (its pixel and sample come from its thread
 // index), writes 12 B of radiance, and spends thousands of FP32 and
-// special-function instructions per bounce; the scene tables (a few
-// hundred bytes) stay in L1/L2. Paths die at different depths under
+// special-function instructions per bounce; the scene and light tables (a
+// few hundred bytes) stay in L1/L2. Paths die at different depths under
 // Russian roulette and take different BSDF branches, so lanes of a warp
-// idle while the longest path in the warp runs.
+// idle while the longest path in the warp runs. NEE adds a shadow ray per
+// bounce and a second branch (sphere or plane light).
 //
 // What the design does about it: one thread per path with a per-thread
 // exit (the TPU exited per block of 2048 rays), only the chosen BSDF lobe
-// evaluated (the TPU evaluated both and selected), no precomputed pixel or
-// sample arrays (the TPU needed them because its gathers were slow), and
-// consecutive threads on the samples of one pixel, so a warp starts
+// and the chosen light's branch evaluated (the TPU evaluated both and
+// selected; the functions are pure, so this is the same), the shadow ray
+// traced only where its contribution can be non-zero, no precomputed pixel
+// or sample arrays (the TPU needed them because its gathers were slow),
+// and consecutive threads on the samples of one pixel, so a warp starts
 // coherent. Path regeneration, table placement and a BVH are later work.
 
 #include <cuda_runtime.h>
@@ -49,6 +72,17 @@ constexpr float RR_CLAMP_LO = (float)(0.05 / 0.55);
 constexpr float RR_CLAMP_HI = (float)0.99;
 constexpr float FLOOR_12 = (float)1e-12;
 constexpr float FLOOR_18 = (float)1e-18;
+constexpr float FLOOR_9 = (float)1e-9;
+constexpr float FLOOR_6 = (float)1e-6;
+constexpr float CONE_OUTSIDE = (float)1.0001;
+constexpr float SHADOW_SCALE = (float)(1.0 - 1e-3);
+// jnp.float32(math.log(1.0 / RR_BASE)) in nee_clamp_at_depth.
+constexpr float LOG_INV_RR = (float)0.5978370007556204;
+
+// Light-table row layout (ops/lights.py).
+constexpr int LIGHT_COLS = 18;
+constexpr int COL_PROB = 0, COL_CUM = 1, COL_KIND = 2, COL_PRIM = 3, COL_G = 4, COL_LE = 12;
+constexpr int COL_R2 = 15, COL_R2_EDGE = 16, COL_AREA = 17;
 
 constexpr int BLOCK = 128;
 
@@ -141,16 +175,144 @@ __device__ __forceinline__ void pair_uniforms(uint32_t k0, uint32_t k1, uint32_t
   u1 = to_unit_float(b1);
 }
 
+// ---- sampling.py ----------------------------------------------------------
+
+__device__ __forceinline__ uint32_t hash32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+__device__ __forceinline__ uint32_t laine_karras(uint32_t x, uint32_t seed) {
+  x ^= x * 0x3D20ADEAu;
+  x += seed;
+  x *= (seed >> 16) | 1u;
+  x ^= x * 0x05526C56u;
+  x ^= x * 0x53A22864u;
+  return x;
+}
+
+__device__ __forceinline__ uint32_t owen_scramble(uint32_t x, uint32_t seed) {
+  return __brev(laine_karras(__brev(x), seed));
+}
+
+// sobol_pair: keys hash32(seed ^ hash32(stream * 8 + 4 * pair + role)), so
+// pairs 2 and 3 of stream s reuse the keys of pairs 0 and 1 of stream s + 1,
+// as in the JAX package. bits is in [1, 32].
+__device__ __forceinline__ void sobol_pair(uint32_t seed, uint32_t sample, uint32_t stream,
+                                           uint32_t pair, int bits, float& u0, float& u1) {
+  const uint32_t group = stream * 8u + 4u * pair;
+  const uint32_t g0 = hash32(seed ^ hash32(group));
+  const uint32_t g1 = hash32(seed ^ hash32(group + 1u));
+  const uint32_t g2 = hash32(seed ^ hash32(group + 2u));
+  const int shift = 32 - bits;
+  const uint32_t idx = owen_scramble(sample << shift, g0) >> shift;  // shuffle_index
+  // sobol2d_bits: van der Corput, and the v ^= v >> 1 recurrence over the
+  // low `bits` index bits.
+  const uint32_t d0 = __brev(idx);
+  uint32_t d1 = 0u, v = 0x80000000u, i = idx;
+  for (int b = 0; b < bits; ++b) {
+    d1 = (i & 1u) ? (d1 ^ v) : d1;
+    v ^= v >> 1;
+    i >>= 1;
+  }
+  u0 = to_unit_float(owen_scramble(d0, g1));
+  u1 = to_unit_float(owen_scramble(d1, g2));
+}
+
+// One ray's draw state: Threefry keys and counters, or the Sobol pixel seed.
+struct Draws {
+  uint32_t k0, k1, pixel, sample, seed;
+  int bits;
+};
+
+template <bool SOBOL>
+__device__ __forceinline__ void draw_pair(const Draws& s, uint32_t stream, uint32_t pair, float& u0,
+                                          float& u1) {
+  if constexpr (SOBOL) {
+    sobol_pair(s.seed, s.sample, stream, pair, s.bits, u0, u1);
+  } else {
+    pair_uniforms(s.k0, s.k1, s.pixel, s.sample, stream, pair, u0, u1);
+  }
+}
+
 // ---- geometry.py ----------------------------------------------------------
 
 __device__ __forceinline__ bool degenerate(V3 d) {
   return almost_zero(d.x) && almost_zero(d.y) && almost_zero(d.z);
 }
 
+// Per-ray quantities of a scan, hoisted out of the object loop.
+struct RayPre {
+  bool deg;
+  float a, tmin;
+};
+
+__device__ __forceinline__ RayPre ray_pre(V3 o, V3 d) {
+  RayPre r;
+  r.deg = degenerate(d);
+  const float dd = mag2(d);
+  // geometry.py::min_hit_t, once per ray, in the ray's own parameterization.
+  const float mag = jmax(jmax(fabsf(o.x), fabsf(o.y)), fabsf(o.z));
+  r.tmin = (T_MIN_SCALE * (1.0f + mag)) / sqrtf(r.deg ? 1.0f : dd);
+  r.a = r.deg ? 1.0f : dd;
+  return r;
+}
+
+// geometry.py::sphere_candidate_t: the nearest root at or beyond tmin, or
+// +inf where there is none, so a plain `<` against it takes only hits.
+__device__ __forceinline__ float sphere_t(const float* __restrict__ sp, V3 o, V3 d,
+                                          const RayPre& pre) {
+  V3 rel = o - v3(__ldg(sp), __ldg(sp + 1), __ldg(sp + 2));
+  float r = __ldg(sp + 3);
+  float b = dot(rel, d);
+  float c = mag2(rel);
+  float u = 2.0f * b / pre.a;
+  float v = (c - r * r) / pre.a;
+  float disc = -v + (u * u) / 4.0f;
+  bool has_root = disc >= 0.0f;
+  float shift = sqrtf(jmax(disc, FLOOR_12));
+  float t0 = -u / 2.0f - shift;
+  float t1 = -u / 2.0f + shift;
+  t0 = t0 < pre.tmin ? INFINITY : t0;
+  t1 = t1 < pre.tmin ? INFINITY : t1;
+  float t = jmin(t0, t1);
+  const bool valid = has_root && !pre.deg && isfinite(t);
+  return valid ? t : INFINITY;
+}
+
+// geometry.py::plane_candidate: t (+inf on a miss), the point at t and the
+// plane's normal.
+__device__ __forceinline__ float plane_t(const float* __restrict__ pl, V3 o, V3 d,
+                                         const RayPre& pre, V3& p, V3& normal) {
+  normal = v3(__ldg(pl), __ldg(pl + 1), __ldg(pl + 2));
+  V3 point = v3(__ldg(pl + 3), __ldg(pl + 4), __ldg(pl + 5));
+  V3 diff = o - point;
+  float pa = -dot(diff, normal);
+  float pb = dot(d, normal);
+  bool on_anchor = diff.x == 0.0f && diff.y == 0.0f && diff.z == 0.0f;
+  bool b_zero = almost_zero(pb);
+  bool parallel_miss = !on_anchor && b_zero;
+  float safe_b = b_zero ? 1.0f : pb;
+  float t = b_zero ? 0.0f : pa / safe_b;
+  bool backward = t < pre.tmin;
+  p = o + d * t;
+  Basis bs = construct_basis(normal);
+  V3 in_plane = p - point;
+  bool outside = (fabsf(dot(in_plane, bs.t)) * 2.0f > __ldg(pl + 6)) ||
+                 (fabsf(dot(in_plane, bs.b)) * 2.0f > __ldg(pl + 7));
+  const bool valid = !pre.deg && !parallel_miss && !backward && !outside;
+  return valid ? t : INFINITY;
+}
+
 struct Hit {
   float t;
   V3 p, n;
   int mid;
+  int prim;  // sphere i -> i, plane j -> n_spheres + j, miss -> -1
   bool hit;
 };
 
@@ -160,35 +322,13 @@ struct Hit {
 // wins a tie against a plane.
 __device__ Hit intersect(const float* __restrict__ spheres, int n_spheres,
                          const float* __restrict__ planes, int n_planes, V3 o, V3 d) {
-  const bool deg = degenerate(d);
-  const float dd = mag2(d);
-  // geometry.py::min_hit_t, once per ray, in the ray's own parameterization.
-  const float mag = jmax(jmax(fabsf(o.x), fabsf(o.y)), fabsf(o.z));
-  const float tmin = (T_MIN_SCALE * (1.0f + mag)) / sqrtf(deg ? 1.0f : dd);
-  const float a = deg ? 1.0f : dd;
+  const RayPre pre = ray_pre(o, d);
 
   float s_best_t = INFINITY;
   int s_best = -1;
   for (int s = 0; s < n_spheres; ++s) {
-    const float* sp = spheres + 5 * s;
-    // geometry.py::sphere_candidate_t
-    V3 rel = o - v3(__ldg(sp), __ldg(sp + 1), __ldg(sp + 2));
-    float r = __ldg(sp + 3);
-    float b = dot(rel, d);
-    float c = mag2(rel);
-    float u = 2.0f * b / a;
-    float v = (c - r * r) / a;
-    float disc = -v + (u * u) / 4.0f;
-    bool has_root = disc >= 0.0f;
-    float shift = sqrtf(jmax(disc, FLOOR_12));
-    float t0 = -u / 2.0f - shift;
-    float t1 = -u / 2.0f + shift;
-    t0 = t0 < tmin ? INFINITY : t0;
-    t1 = t1 < tmin ? INFINITY : t1;
-    float t = jmin(t0, t1);
-    bool valid = has_root && !deg && isfinite(t);
-    t = valid ? t : INFINITY;
-    if (valid && s_best_t > t) {
+    const float t = sphere_t(spheres + 5 * s, o, d, pre);
+    if (s_best_t > t) {
       s_best_t = t;
       s_best = s;
     }
@@ -197,6 +337,7 @@ __device__ Hit intersect(const float* __restrict__ spheres, int n_spheres,
   Hit h;
   h.t = s_best_t;
   h.hit = s_best >= 0;
+  h.prim = s_best;
   h.p = v3(0.0f, 0.0f, 0.0f);
   h.n = v3(0.0f, 0.0f, 0.0f);
   h.mid = 0;
@@ -210,34 +351,33 @@ __device__ Hit intersect(const float* __restrict__ spheres, int n_spheres,
 
   for (int j = 0; j < n_planes; ++j) {
     const float* pl = planes + 9 * j;
-    // geometry.py::plane_candidate
-    V3 normal = v3(__ldg(pl), __ldg(pl + 1), __ldg(pl + 2));
-    V3 point = v3(__ldg(pl + 3), __ldg(pl + 4), __ldg(pl + 5));
-    V3 diff = o - point;
-    float pa = -dot(diff, normal);
-    float pb = dot(d, normal);
-    bool on_anchor = diff.x == 0.0f && diff.y == 0.0f && diff.z == 0.0f;
-    bool b_zero = almost_zero(pb);
-    bool parallel_miss = !on_anchor && b_zero;
-    float safe_b = b_zero ? 1.0f : pb;
-    float t = b_zero ? 0.0f : pa / safe_b;
-    bool backward = t < tmin;
-    V3 p = o + d * t;
-    Basis bs = construct_basis(normal);
-    V3 in_plane = p - point;
-    bool outside = (fabsf(dot(in_plane, bs.t)) * 2.0f > __ldg(pl + 6)) ||
-                   (fabsf(dot(in_plane, bs.b)) * 2.0f > __ldg(pl + 7));
-    bool valid = !deg && !parallel_miss && !backward && !outside;
-    t = valid ? t : INFINITY;
-    if (valid && h.t > t) {
+    V3 p, normal;
+    const float t = plane_t(pl, o, d, pre, p, normal);
+    if (h.t > t) {
       h.t = t;
       h.hit = true;
       h.p = p;
       h.n = normal;
       h.mid = (int)__ldg(pl + 8);
+      h.prim = n_spheres + j;
     }
   }
   return h;
+}
+
+// pallas_integrator.py::_occluded_const: any hit closer than t_max.
+__device__ bool occluded(const float* __restrict__ spheres, int n_spheres,
+                         const float* __restrict__ planes, int n_planes, V3 o, V3 d,
+                         float t_max) {
+  const RayPre pre = ray_pre(o, d);
+  for (int s = 0; s < n_spheres; ++s) {
+    if (sphere_t(spheres + 5 * s, o, d, pre) < t_max) return true;
+  }
+  for (int j = 0; j < n_planes; ++j) {
+    V3 p, normal;
+    if (plane_t(planes + 9 * j, o, d, pre, p, normal) < t_max) return true;
+  }
+  return false;
 }
 
 // ---- materials.py ---------------------------------------------------------
@@ -371,25 +511,137 @@ __device__ void layered_sample(V3 wo, float x0, float x1, float x2, const Basis&
   f = layered_eval(wi, wo, bs.n, mp);
 }
 
+// materials.py::layered_pdf_true: the true density of layered_sample's
+// 50/50 mixture (the glossy sampler's density is twice glossy_pdf).
+__device__ __forceinline__ float layered_pdf_true(V3 wi, V3 wo, V3 n, const Material& mp) {
+  float alpha = mp.roughness * mp.roughness;
+  return 0.5f * (HEMISPHERE_PDF + 2.0f * glossy_pdf(wi, wo, n, alpha));
+}
+
+// ---- next-event estimation (_make_kernel, mode "nee") ---------------------
+
+__device__ __forceinline__ float light(const float* __restrict__ lights, int row, int col) {
+  return __ldg(lights + LIGHT_COLS * row + col);
+}
+
+// integrator.py::nee_clamp_at_depth: base x (1/RR_BASE)^max(depth - 3, 0).
+__device__ __forceinline__ float clamp_at_depth(float base, int depth) {
+  const int excess = depth > RR_YOUNG_DEPTH ? depth - RR_YOUNG_DEPTH : 0;
+  return base * expf((float)excess * LOG_INV_RR);
+}
+
+// The density with which light sampling picks the emitter a BSDF-sampled
+// ray from o along d hit at distance t (prim), 0 off the table. The rows
+// are scanned as the JAX select chain is: the last row of that prim wins.
+__device__ float emission_pickup(const float* __restrict__ lights, int n_lights, V3 o, V3 d,
+                                 float t, int prim) {
+  float p_light = 0.0f;
+  for (int r = 0; r < n_lights; ++r) {
+    if ((int)light(lights, r, COL_PRIM) != prim) continue;
+    const float pr = light(lights, r, COL_PROB);
+    const float g0 = light(lights, r, COL_G), g1 = light(lights, r, COL_G + 1),
+                g2 = light(lights, r, COL_G + 2);
+    if (light(lights, r, COL_KIND) < 0.5f) {
+      const float dx = g0 - o.x, dy = g1 - o.y, dz = g2 - o.z;
+      const float d2 = dx * dx + dy * dy + dz * dz;
+      const float sin2max = jmin(jmax(light(lights, r, COL_R2) / jmax(d2, FLOOR_12), 0.0f), 1.0f);
+      const float cos_max = sqrtf(jmax(1.0f - sin2max, 0.0f));
+      const float cand = pr / (TWO_PI * jmax(1.0f - cos_max, FLOOR_9));
+      p_light = d2 > light(lights, r, COL_R2_EDGE) ? cand : 0.0f;
+    } else {
+      // Area -> solid angle at the hit distance: pr t^2 / (A |cos|).
+      const float cos_l = fabsf(d.x * g0 + d.y * g1 + d.z * g2);
+      p_light = pr * t * t / (light(lights, r, COL_AREA) * jmax(cos_l, FLOOR_6));
+    }
+  }
+  return p_light;
+}
+
+struct LightSample {
+  V3 wi, le;
+  float t, pdf;
+  bool valid;
+};
+
+// Pick a row by the cumulative table (the last row whose predecessor's cum
+// is below u_sel) and sample a direction toward it from p: a uniform cone
+// for a sphere, a uniform point for a plane (two-sided).
+__device__ LightSample sample_light(const float* __restrict__ lights, int n_lights, V3 p,
+                                    float u_sel, float ul1, float ul2) {
+  int r = 0;
+  for (int i = 1; i < n_lights; ++i) r = u_sel > light(lights, i - 1, COL_CUM) ? i : r;
+  const float lpr = light(lights, r, COL_PROB);
+  float g[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) g[i] = light(lights, r, COL_G + i);
+  LightSample ls;
+  ls.le = v3(light(lights, r, COL_LE), light(lights, r, COL_LE + 1), light(lights, r, COL_LE + 2));
+  float pdf;
+  if (light(lights, r, COL_KIND) < 0.5f) {
+    const float lrad = g[3];
+    const V3 to_c = v3(g[0] - p.x, g[1] - p.y, g[2] - p.z);
+    const float d2 = to_c.x * to_c.x + to_c.y * to_c.y + to_c.z * to_c.z;
+    const float dist = sqrtf(jmax(d2, FLOOR_12));
+    const bool outside = dist > lrad * CONE_OUTSIDE;
+    const float sin2max = jmin(jmax(lrad * lrad / jmax(d2, FLOOR_12), 0.0f), 1.0f);
+    const float cos_max = sqrtf(jmax(1.0f - sin2max, 0.0f));
+    const float one_minus = jmax(1.0f - cos_max, FLOOR_9);
+    const float cos_t = 1.0f - ul1 * one_minus;
+    const float sin_t = sqrtf(jmax(1.0f - cos_t * cos_t, 0.0f));
+    const float phi = TWO_PI * ul2;
+    const Basis lb = construct_basis(v3(to_c.x / dist, to_c.y / dist, to_c.z / dist));
+    ls.wi = lb.t * (sin_t * cosf(phi)) + lb.b * (sin_t * sinf(phi)) + lb.n * cos_t;
+    ls.t = dist * cos_t - sqrtf(jmax(lrad * lrad - d2 * (1.0f - cos_t * cos_t), 0.0f));
+    pdf = lpr / (TWO_PI * one_minus);
+    ls.valid = outside && ls.t > 0.0f;
+  } else {
+    const V3 nrm = v3(g[0], g[1], g[2]);
+    const Basis pb = construct_basis(nrm);
+    const V3 q = v3(g[3], g[4], g[5]) + pb.t * ((ul1 - 0.5f) * g[6]) + pb.b * ((ul2 - 0.5f) * g[7]);
+    const V3 to_q = v3(q.x - p.x, q.y - p.y, q.z - p.z);
+    const float d2q = to_q.x * to_q.x + to_q.y * to_q.y + to_q.z * to_q.z;
+    const float dq = sqrtf(jmax(d2q, FLOOR_12));
+    ls.wi = v3(to_q.x / dq, to_q.y / dq, to_q.z / dq);
+    const float cos_lp = fabsf(dot(ls.wi, nrm));
+    const float area = jmax(g[6] * g[7], FLOOR_12);
+    pdf = lpr * d2q / (area * jmax(cos_lp, FLOOR_6));
+    ls.t = dq;
+    ls.valid = cos_lp > FLOOR_6 && dq > FLOOR_6;
+  }
+  ls.pdf = jmax(pdf, FLOOR_12);
+  return ls;
+}
+
 // ---- the kernel -----------------------------------------------------------
 
+// NEE: mode "nee" (else "path"); SOBOL: sampler "sobol" (else "uniform").
+// `lights` (n_lights rows) and `clamp` (the clamp base) are read in mode
+// "nee" only; n_lights = 0 means nothing emits: no light is sampled, and
+// emission is neither MIS-weighted nor clamped.
+template <bool NEE, bool SOBOL>
 __global__ void __launch_bounds__(BLOCK)
 megakernel(const float* __restrict__ camera, const float* __restrict__ spheres, int n_spheres,
            const float* __restrict__ planes, int n_planes, const float* __restrict__ materials,
-           float* __restrict__ out, long long n_rays, uint32_t k0, uint32_t k1, int width,
-           float inv_width, float inv_height, int spp_chunk, uint32_t sample_offset,
-           int max_depth) {
+           float* __restrict__ out, long long n_rays, uint32_t k0, uint32_t k1, uint32_t root,
+           int width, float inv_width, float inv_height, int spp_chunk, uint32_t sample_offset,
+           int max_depth, int index_bits, const float* __restrict__ lights, int n_lights,
+           const float* __restrict__ clamp) {
   const long long k = (long long)blockIdx.x * BLOCK + threadIdx.x;
   if (k >= n_rays) return;
   // Ray k is (pixel k / spp, sample offset + k % spp).
-  const uint32_t pixel = (uint32_t)(k / spp_chunk);
-  const uint32_t sample = sample_offset + (uint32_t)(k % spp_chunk);
+  Draws s;
+  s.k0 = k0;
+  s.k1 = k1;
+  s.pixel = (uint32_t)(k / spp_chunk);
+  s.sample = sample_offset + (uint32_t)(k % spp_chunk);
+  s.seed = hash32(s.pixel ^ root);  // the per-pixel Sobol seed
+  s.bits = index_bits;
 
   // Camera jitter (stream 0, pair 0) and generate_rays.
   float u0, u1;
-  pair_uniforms(k0, k1, pixel, sample, 0u, 0u, u0, u1);
-  const float fi = (float)(pixel % (uint32_t)width);
-  const float fj = (float)(pixel / (uint32_t)width);
+  draw_pair<SOBOL>(s, 0u, 0u, u0, u1);
+  const float fi = (float)(s.pixel % (uint32_t)width);
+  const float fj = (float)(s.pixel / (uint32_t)width);
   const float x = (fi + u0) * inv_width;
   const float y = (fj + u1) * inv_height;
   const V3 eye = v3(__ldg(camera), __ldg(camera + 1), __ldg(camera + 2));
@@ -401,18 +653,55 @@ megakernel(const float* __restrict__ camera, const float* __restrict__ spheres, 
   d = d * (1.0f / sqrtf(mag2(d)));
   V3 o = eye;
 
+  const bool sample_lights = NEE && n_lights > 0;
+  const float clamp_base = sample_lights ? __ldg(clamp) : 0.0f;
   V3 tput = v3(1.0f, 1.0f, 1.0f);
   V3 rad = v3(0.0f, 0.0f, 0.0f);
+  float prev_pdf = 1.0f;  // the previous vertex's true BSDF density (MIS)
   for (int depth = 0; depth < max_depth; ++depth) {
     const Hit h = intersect(spheres, n_spheres, planes, n_planes, o, d);
     if (!h.hit) break;  // a miss ends the path: nothing further is added
     const Material mp = load_material(materials, h.mid);
-    rad = rad + tput * mp.emission;
+    V3 contrib = tput * mp.emission;
+    if (sample_lights && depth > 0) {
+      // MIS against light sampling, and the depth-aware clamp; the camera's
+      // own sighting of an emitter (depth 0) is neither.
+      const float p_light = emission_pickup(lights, n_lights, o, d, h.t, h.prim);
+      const float w = prev_pdf / jmax(prev_pdf + p_light, FLOOR_12);
+      const float cl = clamp_at_depth(clamp_base, depth);
+      contrib = v3(jmin(contrib.x * w, cl), jmin(contrib.y * w, cl), jmin(contrib.z * w, cl));
+    }
+    rad = rad + contrib;
 
+    // Pair 0 = BSDF lobe (x0, x1); pair 1 = (x2 layer choice, RR); nee adds
+    // pair 2 = (light select, cone u1) and pair 3 = (cone u2, spare).
     const uint32_t stream = (uint32_t)depth + 1u;
     float x0, x1, x2, u_rr;
-    pair_uniforms(k0, k1, pixel, sample, stream, 0u, x0, x1);
-    pair_uniforms(k0, k1, pixel, sample, stream, 1u, x2, u_rr);
+    draw_pair<SOBOL>(s, stream, 0u, x0, x1);
+    draw_pair<SOBOL>(s, stream, 1u, x2, u_rr);
+    const V3 wo = -d;
+
+    if (sample_lights) {
+      float u_sel, ul1, ul2, spare;
+      draw_pair<SOBOL>(s, stream, 2u, u_sel, ul1);
+      draw_pair<SOBOL>(s, stream, 3u, ul2, spare);
+      const LightSample ls = sample_light(lights, n_lights, h.p, u_sel, ul1, ul2);
+      const float cos_surf = dot(ls.wi, h.n);
+      // The light's contribution before the RR decision, as in the JAX
+      // kernel; the shadow ray only where it can be non-zero.
+      if (ls.valid && cos_surf > 0.0f &&
+          !occluded(spheres, n_spheres, planes, n_planes, h.p + ls.wi * BOUNCE_EPSILON, ls.wi,
+                    ls.t * SHADOW_SCALE)) {
+        const V3 f_l = layered_eval(ls.wi, wo, h.n, mp);
+        const float p_bsdf = layered_pdf_true(ls.wi, wo, h.n, mp);
+        const float mis = ls.pdf / jmax(ls.pdf + p_bsdf, FLOOR_12);
+        const float scale = mis * cos_surf / ls.pdf;
+        const float cl = clamp_at_depth(clamp_base, depth);
+        rad = rad + v3(jmin(tput.x * f_l.x * ls.le.x * scale, cl),
+                       jmin(tput.y * f_l.y * ls.le.y * scale, cl),
+                       jmin(tput.z * f_l.z * ls.le.z * scale, cl));
+      }
+    }
 
     // integrator.py::russian_roulette_probability
     const float power = jmin(jmax(mag2(tput), RR_CLAMP_LO), RR_CLAMP_HI);
@@ -422,28 +711,70 @@ megakernel(const float* __restrict__ camera, const float* __restrict__ spheres, 
     const Basis bs = construct_basis(h.n);
     V3 wi, f;
     float pdf;
-    layered_sample(-d, x0, x1, x2, bs, mp, wi, pdf, f);
+    layered_sample(wo, x0, x1, x2, bs, mp, wi, pdf, f);
+    if (NEE) pdf = layered_pdf_true(wi, wo, h.n, mp);
     const float scale = fabsf(dot(wi, h.n)) / (pdf * prob);
     tput = tput * f * scale;
     o = h.p + wi * BOUNCE_EPSILON;
     d = wi;  // zero after a glossy sample below the surface: the next hit misses
+    prev_pdf = pdf;
   }
   out[3 * k + 0] = rad.x;
   out[3 * k + 1] = rad.y;
   out[3 * k + 2] = rad.z;
 }
 
+template <bool NEE, bool SOBOL>
+int launch(const float* camera, const float* spheres, int n_spheres, const float* planes,
+           int n_planes, const float* materials, float* out, long long n_rays, uint32_t k0,
+           uint32_t k1, uint32_t root, int width, float inv_width, float inv_height,
+           int spp_chunk, uint32_t sample_offset, int max_depth, int index_bits,
+           const float* lights, int n_lights, const float* clamp, cudaStream_t stream) {
+  const long long blocks = (n_rays + BLOCK - 1) / BLOCK;
+  megakernel<NEE, SOBOL><<<(unsigned int)blocks, BLOCK, 0, stream>>>(
+      camera, spheres, n_spheres, planes, n_planes, materials, out, n_rays, k0, k1, root, width,
+      inv_width, inv_height, spp_chunk, sample_offset, max_depth, index_bits, lights, n_lights,
+      clamp);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Launches one thread per ray on `stream` and returns cudaGetLastError().
+#ifndef CORNELIS_MEGAKERNEL_NEE
+
+// Launches one thread per ray in mode "path" on `stream` and returns
+// cudaGetLastError(). sobol (0 or 1) chooses the instantiation; index_bits
+// is clamped to [1, 32].
 extern "C" int cornelis_megakernel(const float* camera, const float* spheres, int n_spheres,
                                    const float* planes, int n_planes, const float* materials,
                                    float* out, long long n_rays, uint32_t k0, uint32_t k1,
-                                   int width, float inv_width, float inv_height, int spp_chunk,
-                                   uint32_t sample_offset, int max_depth, void* stream) {
-  const long long blocks = (n_rays + BLOCK - 1) / BLOCK;
-  megakernel<<<(unsigned int)blocks, BLOCK, 0, (cudaStream_t)stream>>>(
-      camera, spheres, n_spheres, planes, n_planes, materials, out, n_rays, k0, k1, width,
-      inv_width, inv_height, spp_chunk, sample_offset, max_depth);
-  return (int)cudaGetLastError();
+                                   uint32_t root, int width, float inv_width, float inv_height,
+                                   int spp_chunk, uint32_t sample_offset, int max_depth, int sobol,
+                                   int index_bits, void* stream) {
+  index_bits = index_bits < 1 ? 1 : (index_bits > 32 ? 32 : index_bits);
+  auto* fn = sobol ? launch<false, true> : launch<false, false>;
+  return fn(camera, spheres, n_spheres, planes, n_planes, materials, out, n_rays, k0, k1, root,
+            width, inv_width, inv_height, spp_chunk, sample_offset, max_depth, index_bits, nullptr,
+            0, nullptr, (cudaStream_t)stream);
 }
+
+#else
+
+// The same in mode "nee" (megakernel_nee.cu), with the light table
+// (n_lights rows of ops/lights.py's layout) and the clamp base.
+extern "C" int cornelis_megakernel_nee(const float* camera, const float* spheres, int n_spheres,
+                                       const float* planes, int n_planes, const float* materials,
+                                       float* out, long long n_rays, uint32_t k0, uint32_t k1,
+                                       uint32_t root, int width, float inv_width,
+                                       float inv_height, int spp_chunk, uint32_t sample_offset,
+                                       int max_depth, int sobol, int index_bits,
+                                       const float* lights, int n_lights, const float* clamp,
+                                       void* stream) {
+  index_bits = index_bits < 1 ? 1 : (index_bits > 32 ? 32 : index_bits);
+  auto* fn = sobol ? launch<true, true> : launch<true, false>;
+  return fn(camera, spheres, n_spheres, planes, n_planes, materials, out, n_rays, k0, k1, root,
+            width, inv_width, inv_height, spp_chunk, sample_offset, max_depth, index_bits, lights,
+            n_lights, clamp, (cudaStream_t)stream);
+}
+
+#endif

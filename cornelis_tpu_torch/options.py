@@ -2,9 +2,11 @@
 
 Counterpart of `cornelis_tpu/options.py` for what the port runs so far,
 with the reference's defaults (RenderOptions.hpp:6-16, Render.cpp:264,307):
-512x512, 256 spp, max_depth 64, the reference seed. New here: `device`
-and `backend`. Checkpoint, time budget, the device mesh, NEE and Sobol
-come in later work; asking for NEE or Sobol raises NotImplementedError.
+512x512, 256 spp, max_depth 64, the reference seed, the path integrator
+and the uniform sampler. New here: `device`. The tables' device decides
+what runs: a CUDA device launches the hand-written kernel, the CPU runs
+its plain version. Checkpoint, time budget and the device mesh come in
+later work.
 """
 
 from __future__ import annotations
@@ -31,12 +33,17 @@ class RenderOptions:
     spp_chunk: int = 0
     # Output path; None = don't save (reference: "cornelisrender2.png").
     output: Optional[str] = "cornelisrender2.png"
+    # "uniform" (Threefry) or "sobol" (Owen-scrambled Sobol).
     sampler: str = "uniform"
+    # "path" replicates the reference; "nee" is the corrected estimator
+    # (MIS-combined light sampling and the true BSDF density).
     integrator: str = "path"
-    # Where the render runs. There is no automatic choice of the CPU.
+    # NEE firefly clamp base: None = 16 x the brightest emission channel
+    # (floored at 1); math.inf disables the clamp. Ignored in path mode.
+    nee_clamp: Optional[float] = None
+    # Where the render runs: "cuda" (the kernel) or "cpu" (its plain
+    # version). There is no automatic choice of the CPU.
     device: str = "cuda"
-    # "cuda": the hand-written megakernel; "torch": its plain version.
-    backend: str = "cuda"
 
     def validate(self) -> None:
         if self.samples_aa <= 0:
@@ -47,21 +54,21 @@ class RenderOptions:
             raise ValueError("max_depth must be positive.")
         if self.spp_chunk < 0:
             raise ValueError("spp_chunk must be >= 0 (0 = auto).")
-        if self.sampler != "uniform":
-            raise NotImplementedError(
-                f"sampler {self.sampler!r} is not ported yet (only 'uniform')."
-            )
-        if self.integrator != "path":
-            raise NotImplementedError(
-                f"integrator {self.integrator!r} is not ported yet (only 'path')."
-            )
-        if self.backend not in ("cuda", "torch"):
-            raise ValueError(f"backend must be 'cuda' or 'torch' (not {self.backend!r}).")
-        if self.backend == "cuda" and torch.device(self.device).type != "cuda":
+        if self.sampler not in ("uniform", "sobol"):
+            raise ValueError(f"sampler must be 'uniform' or 'sobol' (not {self.sampler!r}).")
+        if self.integrator not in ("path", "nee"):
+            raise ValueError(f"integrator must be 'path' or 'nee' (not {self.integrator!r}).")
+        if self.nee_clamp is not None and not self.nee_clamp > 0:
             raise ValueError(
-                f"backend 'cuda' needs a CUDA device (got {self.device!r}); "
-                "use backend='torch' for the plain version elsewhere."
+                f"nee_clamp must be > 0 (math.inf disables clamping; None "
+                f"selects the scale-aware default), not {self.nee_clamp}."
             )
+        try:
+            kind = torch.device(self.device).type
+        except (RuntimeError, ValueError):
+            kind = None
+        if kind not in ("cuda", "cpu"):
+            raise ValueError(f"device must be a CUDA device or 'cpu' (not {self.device!r}).")
 
     def resolved_spp_chunk(self) -> int:
         if self.spp_chunk > 0:

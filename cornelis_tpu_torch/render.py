@@ -4,7 +4,10 @@ Counterpart of `cornelis_tpu/render.py:289-` for what the port runs so far.
 The frame is rendered in chunks of `spp_chunk` samples per pixel, one
 kernel launch each; chunk sums accumulate on the device and reach the
 host film once, at the end, so launches queue back to back on the
-stream. Progress callbacks, abort, checkpoints and the time budget come
+stream. Every chunk gets the sampler, the integrator mode, the NEE clamp
+and spp_total = samples_aa (render.py:383-416 of the JAX package); in
+mode "nee" the light table is built once, on the host, before the first
+chunk. Progress callbacks, abort, checkpoints and the time budget come
 in later work. The TPU-only scheduling machinery (warmth stamps, the
 XLA -> Pallas switchover, schedule replay, host-scene memo, completion
 probes) has no job on CUDA and is not carried over.
@@ -19,9 +22,10 @@ from typing import Optional
 import numpy as np
 
 from .film import Film
+from .ops.lights import light_table
 from .ops.megakernel import render_chunk
 from .options import RenderOptions
-from .rng import key_words
+from .rng import key_row
 from .scene.compile import compile_scene
 from .scene.description import SceneDescription
 
@@ -46,24 +50,32 @@ class RenderSession:
         self.options = options or RenderOptions()
         self.options.validate()
         self.scene_description = scene
-        self.tables = compile_scene(scene, device=self.options.device)
+        self.tables = compile_scene(scene).to(self.options.device)
+        # Two Threefry evaluations in small host torch ops: derive them once.
+        self.key = key_row(self.options.seed)
+        self.lights = None
+        if self.options.integrator == "nee":
+            self.lights = light_table(self.tables, self.options.nee_clamp)
 
     def render(self) -> RenderResult:
         opts = self.options
-        key = key_words(opts.seed)
         spp_chunk = opts.resolved_spp_chunk()
         accum = None
         starts = range(0, opts.samples_aa, spp_chunk)
         for offset in starts:
             chunk = render_chunk(
                 self.tables,
-                key,
+                self.key,
                 offset,
                 width=opts.width,
                 height=opts.height,
                 spp_chunk=min(spp_chunk, opts.samples_aa - offset),
+                spp_total=opts.samples_aa,
                 max_depth=opts.max_depth,
-                backend=opts.backend,
+                sampler=opts.sampler,
+                mode=opts.integrator,
+                nee_clamp=opts.nee_clamp,
+                lights=self.lights,
             )
             accum = chunk if accum is None else accum + chunk
 

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Where the time of the port's main path goes, on one CUDA device.
 
-    python3 profile_render.py
+    python3 profile_render.py [--integrator nee] [--sampler sobol]
 
-Renders `RenderSession(cornell_box(), RenderOptions())` (512x512, 256
-spp, max_depth 64, the CUDA kernel) and prints, with the card's name and
-power limit:
+Renders `RenderSession(cornell_box(), RenderOptions(...))` (512x512, 256
+spp, max_depth 64, the CUDA kernel; path/uniform unless the flags say
+otherwise) and prints, with the card's name and power limit:
 
   - the render's wall time with the PNG written and without it, five runs
     each after a warm-up, sorted, and their medians;
@@ -20,6 +20,7 @@ lines.
 
 from __future__ import annotations
 
+import argparse
 import os
 import statistics
 import subprocess
@@ -58,6 +59,11 @@ def event_ms(fn, launches):
 def main() -> int:
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--integrator", choices=("path", "nee"), default="path")
+    parser.add_argument("--sampler", choices=("uniform", "sobol"), default="uniform")
+    args = parser.parse_args()
+
     if not torch.cuda.is_available():
         print("profile_render: no CUDA device", file=sys.stderr)
         return 1
@@ -67,16 +73,20 @@ def main() -> int:
 
     from cornelis_tpu_torch import RenderOptions, RenderSession, cornell_box
     from cornelis_tpu_torch.ops import megakernel
-    from cornelis_tpu_torch.rng import key_words
+    from cornelis_tpu_torch.rng import key_row
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0])
 
+    print(f"integrator {args.integrator}, sampler {args.sampler}")
+    variant = dict(integrator=args.integrator, sampler=args.sampler)
     with tempfile.TemporaryDirectory() as tmp:
-        with_png = RenderSession(cornell_box(), RenderOptions(output=os.path.join(tmp, "p.png")))
-        no_png = RenderSession(cornell_box(), RenderOptions(output=None))
+        with_png = RenderSession(
+            cornell_box(), RenderOptions(output=os.path.join(tmp, "p.png"), **variant)
+        )
+        no_png = RenderSession(cornell_box(), RenderOptions(output=None, **variant))
         with_png.render()  # builds and loads the kernel
         torch.cuda.synchronize()
         for name, session in (("PNG written", with_png), ("no PNG", no_png)):
@@ -100,11 +110,17 @@ def main() -> int:
           f"{busy_us / 1e3:.2f} ms, idle share {1 - busy_us / 1e3 / (wall * 1e3):.3f}")
 
     tables = with_png.tables
-    k0, k1 = key_words(with_png.options.seed)
-    ms = event_ms(lambda i: megakernel.render_rays(tables, k0, k1, 512, 512, 32, 32 * (i % 8), 64), 20)
+    k0, k1, root = key_row(with_png.options.seed)
+    kw = dict(root=root, sampler=args.sampler, mode=args.integrator, lights=with_png.lights,
+              index_bits=megakernel.index_bits_for(with_png.options.samples_aa))
+
+    def launch(offset, depth):
+        return megakernel.render_rays(tables, k0, k1, 512, 512, 32, offset, depth, **kw)
+
+    ms = event_ms(lambda i: launch(32 * (i % 8), 64), 20)
     print(f"kernel per 32-spp launch at 512x512 (events, 20 launches): {ms:.3f} ms")
     for depth in (1, 2, 4, 8, 16, 64):
-        ms = event_ms(lambda i: megakernel.render_rays(tables, k0, k1, 512, 512, 32, 0, depth), 10)
+        ms = event_ms(lambda i: launch(0, depth), 10)
         print(f"kernel per launch at max_depth {depth} (events, 10 launches): {ms:.3f} ms")
     return 0
 

@@ -1,4 +1,4 @@
-"""The CUDA megakernel on the card: tests marked `cuda`, which skip where
+"""The CUDA kernels on the card: tests marked `cuda`, which skip where
 torch sees no CUDA device.
 
 This file imports no JAX, so that it runs on a host with a card and no
@@ -6,12 +6,14 @@ JAX. `tests/conftest.py` imports jax, so there run it without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Bar, and why: FMA contraction and CUDA's sinf/cosf move ulps against the
-plain version's separate torch ops, and a knife-edge path (an RR draw or a
-closest-hit comparison within an ulp) then goes elsewhere. So at least 99%
-of rays within rtol = atol = 1e-4 and each channel's mean within 1%, the
-bar of `chip_smoke.py` and of the plain version against the Pallas kernel
-in `tests/test_torch_megakernel.py`.
+Bar, and why: FMA contraction (mode "path") and CUDA's sinf/cosf move ulps
+against the plain version's separate torch ops, and a knife-edge path (an
+RR draw or a closest-hit comparison within an ulp) then goes elsewhere.
+So at least 99% of rays within rtol = atol = 1e-4 and each channel's mean
+within 1%, the bar of `chip_smoke.py` and of the plain version against
+the Pallas kernel in `tests/test_torch_megakernel.py`. The light-table
+kernel does only float32 products and sums in the plain version's
+order, so it is held to float32 rounding.
 """
 
 import numpy as np
@@ -19,12 +21,15 @@ import pytest
 import torch
 
 from cornelis_tpu_torch import RenderOptions, RenderSession, RenderStatus
-from cornelis_tpu_torch.ops import megakernel
-from cornelis_tpu_torch.rng import DEFAULT_SEED
+from cornelis_tpu_torch.ops import lights, megakernel
+from cornelis_tpu_torch.ops.dynamic import render_chunk_dynamic
+from cornelis_tpu_torch.rng import DEFAULT_SEED, key_row
 from cornelis_tpu_torch.scene import library as tlib
 from cornelis_tpu_torch.scene.compile import compile_scene
 
 pytestmark = pytest.mark.cuda
+
+VARIANTS = [("path", "uniform"), ("path", "sobol"), ("nee", "uniform"), ("nee", "sobol")]
 
 
 @pytest.fixture
@@ -54,9 +59,65 @@ def test_cuda_kernel_matches_plain_version(cuda, offset):
     assert frac >= 0.99 and (mean_rel <= 1e-2).all()
 
 
-def test_cuda_session_launches_kernel_per_chunk(cuda):
+@pytest.mark.parametrize("mode,sampler", VARIANTS)
+@pytest.mark.parametrize("scene", ["cornell_box", "cornell_panel"])
+def test_cuda_variant_matches_plain_version(cuda, scene, mode, sampler):
+    tables = compile_scene(getattr(tlib, scene)(), device="cuda")
+    k0, k1, root = key_row(DEFAULT_SEED)
+    kw = dict(root=root, sampler=sampler, mode=mode, index_bits=megakernel.index_bits_for(16),
+              lights=lights.light_table(tables) if mode == "nee" else None)
+    args = (tables, k0, k1, 32, 32, 4, 12, 64)
+    k = megakernel.render_rays(*args, **kw)
+    torch.cuda.synchronize()
+    p = megakernel.render_rays_reference(*args, "cuda", **kw)
+    frac, mean_rel = agreement(k.cpu().numpy(), p.cpu().numpy())
+    assert torch.isfinite(k).all()
+    assert frac >= 0.99 and (mean_rel <= 1e-2).all()
+
+
+@pytest.mark.parametrize("scene", ["cornell_box", "cornell_panel"])
+def test_cuda_light_table_matches_plain_version(cuda, scene):
+    tables = compile_scene(getattr(tlib, scene)(), device="cuda")
+    before = lights.LAUNCHES
+    got = lights.light_table_dyn(tables)
+    torch.cuda.synchronize()
+    assert lights.LAUNCHES == before + 1
+    want = lights.light_table_dyn_reference(tables)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2.0 ** -23, atol=0.0)
+
+
+@pytest.mark.parametrize("mode", ["path", "nee"])
+def test_cuda_dynamic_matches_plain_version(cuda, mode):
+    tables = compile_scene(tlib.cornell_box(), device="cuda")
+    key = key_row(3)
+    kw = dict(width=32, height=32, spp_chunk=4, spp_total=16, max_depth=64, sampler="sobol",
+              mode=mode)
+    k = render_chunk_dynamic(tables, key, 4, **kw)
+    torch.cuda.synchronize()
+    p = megakernel.render_rays_reference(
+        tables, key[0], key[1], 32, 32, 4, 4, 64, "cuda", root=key[2], sampler="sobol", mode=mode,
+        index_bits=4, lights=lights.light_table_dyn_reference(tables) if mode == "nee" else None,
+    ).view(32 * 32, 4, 3).sum(1).view(32, 32, 3)
+    frac, mean_rel = agreement(k.cpu().numpy(), p.cpu().numpy())
+    assert frac >= 0.99 and (mean_rel <= 1e-2).all()
+
+
+def test_cuda_dynamic_emission_doubling(cuda):
+    tables = compile_scene(tlib.cornell_box(), device="cuda")
+    kw = dict(width=32, height=32, spp_chunk=4, spp_total=4, max_depth=64, sampler="sobol",
+              mode="nee")
+    base = render_chunk_dynamic(tables, key_row(6), 0, **kw)
+    tables.materials[:, 3:6] *= 2.0
+    doubled = render_chunk_dynamic(tables, key_row(6), 0, **kw)
+    torch.testing.assert_close(doubled, 2.0 * base, rtol=1e-5, atol=0.0)
+    assert base.max() > 0
+
+
+@pytest.mark.parametrize("mode,sampler", [("path", "uniform"), ("nee", "sobol")])
+def test_cuda_session_launches_kernel_per_chunk(cuda, mode, sampler):
     opts = RenderOptions(width=32, height=32, samples_aa=8, spp_chunk=4, max_depth=8,
-                         output=None, device="cuda", backend="cuda")
+                         output=None, device="cuda", integrator=mode, sampler=sampler)
     before = megakernel.LAUNCHES
     result = RenderSession(tlib.cornell_box(), opts).render()
     assert result.status == RenderStatus.DONE

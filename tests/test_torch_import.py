@@ -50,6 +50,9 @@ def test_jax_is_really_blocked(tmp_path):
         "cornelis_tpu_torch.__main__",
         "cornelis_tpu_torch.ops.megakernel",
         "cornelis_tpu_torch.ops.build",
+        "cornelis_tpu_torch.ops.dynamic",
+        "cornelis_tpu_torch.ops.lights",
+        "cornelis_tpu_torch.sampling",
     ],
 )
 def test_import_without_jax(module, tmp_path):
@@ -66,7 +69,7 @@ def test_cpu_render_without_jax(tmp_path):
         "import numpy as np\n"
         "from cornelis_tpu_torch import RenderOptions, RenderSession, cornell_box\n"
         "opts = RenderOptions(width=16, height=16, samples_aa=2, max_depth=4,\n"
-        "                     device='cpu', backend='torch', output='out.png')\n"
+        "                     device='cpu', output='out.png')\n"
         "res = RenderSession(cornell_box(), opts).render()\n"
         "print(res.status.name, res.image.shape, bool(np.isfinite(res.image).all()))\n",
         tmp_path,

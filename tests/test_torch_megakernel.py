@@ -1,8 +1,8 @@
 """The megakernel's plain torch version against the JAX Pallas kernel, per ray.
 
 `render_rays_reference` must compute what
-`cornelis_tpu.ops.pallas_integrator._make_kernel` (path mode, uniform
-sampler) computes. The JAX kernel runs as its own tests run it on the
+`cornelis_tpu.ops.pallas_integrator._make_kernel` (path mode, uniform and
+Sobol samplers; mode "nee" is in tests/test_torch_nee.py) computes. The JAX kernel runs as its own tests run it on the
 CPU, in Pallas interpret mode. With spp_chunk=1 every pixel of a chunk is
 one ray, so the images compare ray by ray.
 
@@ -33,8 +33,8 @@ import torch
 from cornelis_tpu.ops.pallas_integrator import render_chunk_pallas
 from cornelis_tpu.scene import library as jlib
 from cornelis_tpu.scene.compile import compile_scene as jcompile
-from cornelis_tpu_torch.ops import megakernel
-from cornelis_tpu_torch.rng import DEFAULT_SEED, key_words
+from cornelis_tpu_torch.ops import lights, megakernel
+from cornelis_tpu_torch.rng import DEFAULT_SEED, key_row
 from cornelis_tpu_torch.scene import library as tlib
 from cornelis_tpu_torch.scene.compile import compile_scene
 
@@ -51,10 +51,8 @@ def agreement(a, b):
     return ok.mean(), np.abs(ma - mb) / np.maximum(np.abs(mb), 1e-12)
 
 
-@pytest.fixture(scope="module", params=["cornell_box", "cornell_panel", "sphere_on_plane"])
-def pair(request):
+def _render_pair(name, sampler):
     """(port image, JAX image) per offset for one scene, seed 19791102."""
-    name = request.param
     jscene = jcompile(getattr(jlib, name)())
     tables = compile_scene(getattr(tlib, name)())
     key = jax.random.key(DEFAULT_SEED)
@@ -62,14 +60,28 @@ def pair(request):
     for off in OFFSETS:
         j = render_chunk_pallas(
             jscene, key, np.uint32(off), width=W, height=H, spp_chunk=1,
-            spp_total=16, max_depth=MAX_DEPTH, interpret=True,
+            spp_total=16, max_depth=MAX_DEPTH, interpret=True, sampler=sampler,
         )
         t = megakernel.render_chunk(
-            tables, key_words(DEFAULT_SEED), off, width=W, height=H, spp_chunk=1,
-            max_depth=MAX_DEPTH, backend="torch",
+            tables, key_row(DEFAULT_SEED), off, width=W, height=H, spp_chunk=1,
+            spp_total=16, max_depth=MAX_DEPTH, sampler=sampler,
         )
         out.append((t.numpy(), np.asarray(j)))
     return out
+
+
+SCENES = ["cornell_box", "cornell_panel", "sphere_on_plane"]
+
+
+@pytest.fixture(scope="module", params=SCENES)
+def pair(request):
+    return _render_pair(request.param, "uniform")
+
+
+@pytest.fixture(scope="module", params=SCENES)
+def sobol_pair(request):
+    """As `pair`, with the Sobol sampler (16 spp in all: 4 index bits)."""
+    return _render_pair(request.param, "sobol")
 
 
 @pytest.mark.parametrize("i", range(len(OFFSETS)))
@@ -90,6 +102,23 @@ def test_plain_version_matches_pallas_mean(pair):
     assert (t.sum(-1) > 0).sum() >= 5
 
 
+@pytest.mark.parametrize("i", range(len(OFFSETS)))
+def test_plain_sobol_matches_pallas_per_ray(sobol_pair, i):
+    t, j = sobol_pair[i]
+    assert t.shape == j.shape == (H, W, 3)
+    assert np.isfinite(t).all()
+    frac, _ = agreement(t, j)
+    assert frac >= 0.99, f"only {frac:.2%} of rays agree"
+
+
+def test_plain_sobol_matches_pallas_mean(sobol_pair):
+    t = np.stack([p[0] for p in sobol_pair])
+    j = np.stack([p[1] for p in sobol_pair])
+    _, mean_rel = agreement(t, j)
+    assert (mean_rel <= 1e-2).all(), f"channel means differ by {mean_rel}"
+    assert (t.sum(-1) > 0).sum() >= 5
+
+
 def test_cpu_wrapper_runs_plain_version_without_counting():
     tables = compile_scene(tlib.cornell_box())
     before = megakernel.LAUNCHES
@@ -103,7 +132,7 @@ def test_chunk_sums_samples_per_pixel():
     tables = compile_scene(tlib.sphere_on_plane())
     rays = megakernel.render_rays_reference(tables, 0, 9, 4, 3, 5, 2, 4, "cpu")
     chunk = megakernel.render_chunk(
-        tables, (0, 9), 2, width=4, height=3, spp_chunk=5, max_depth=4, backend="torch"
+        tables, (0, 9, 0), 2, width=4, height=3, spp_chunk=5, spp_total=8, max_depth=4
     )
     torch.testing.assert_close(chunk, rays.view(3, 4, 5, 3).sum(2), rtol=0, atol=0)
 
@@ -133,9 +162,22 @@ def test_wrapper_rejects_bad_tables(field, bad):
         megakernel.render_rays(tables, 0, 1, 4, 4, 1, 0, 2)
 
 
-def test_unknown_backend_raises():
-    with pytest.raises(ValueError):
-        megakernel.render_chunk(
-            compile_scene(tlib.cornell_box()), (0, 1), 0, width=2, height=2,
-            spp_chunk=1, max_depth=1, backend="xla",
-        )
+@pytest.mark.parametrize(
+    "mode,sampler", [("path", "uniform"), ("path", "sobol"), ("nee", "uniform"), ("nee", "sobol")]
+)
+def test_cpu_tables_run_plain_version(mode, sampler):
+    # The tables' device alone decides: CPU tables run the plain version
+    # and launch nothing.
+    tables = compile_scene(tlib.cornell_box())
+    key = key_row(5)
+    before = megakernel.LAUNCHES
+    chunk = megakernel.render_chunk(
+        tables, key, 3, width=4, height=4, spp_chunk=2, spp_total=8, max_depth=4,
+        sampler=sampler, mode=mode,
+    )
+    assert megakernel.LAUNCHES == before
+    rays = megakernel.render_rays_reference(
+        tables, key[0], key[1], 4, 4, 2, 3, 4, "cpu", root=key[2], sampler=sampler,
+        mode=mode, index_bits=3, lights=lights.light_table(tables),
+    )
+    torch.testing.assert_close(chunk, rays.view(4, 4, 2, 3).sum(2), rtol=0, atol=0)

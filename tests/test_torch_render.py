@@ -49,7 +49,7 @@ def renders(tmp_path_factory):
     before = megakernel.LAUNCHES
     t = RenderSession(
         cornell_box(),
-        RenderOptions(device="cpu", backend="torch", output=str(out / "torch.png"), **SIZE),
+        RenderOptions(device="cpu", output=str(out / "torch.png"), **SIZE),
     ).render()
     assert megakernel.LAUNCHES == before  # the plain version launches nothing
     return t, j, out
@@ -81,10 +81,55 @@ def test_pngs_agree(renders):
     assert ok.mean() >= 0.99, f"only {ok.mean():.2%} of pixels within +-1"
 
 
+@pytest.fixture(scope="module")
+def nee_renders():
+    """The new slice, integrator "nee" with sampler "sobol", through both
+    sessions (no PNG)."""
+    from cornelis_tpu.ops import pallas_integrator as pk
+
+    kw = dict(SIZE, integrator="nee", sampler="sobol", output=None)
+    mp = pytest.MonkeyPatch()
+    mp.setenv("CORNELIS_PALLAS_INTERPRET", "1")
+    mp.setattr(pk, "_PROCESS_WARM", pk._PROCESS_WARM)
+    try:
+        j = JSession(jcornell(), JOptions(backend="pallas", **kw)).render()
+    finally:
+        mp.undo()
+    before = megakernel.LAUNCHES
+    t = RenderSession(cornell_box(), RenderOptions(device="cpu", **kw)).render()
+    assert megakernel.LAUNCHES == before
+    return t, j
+
+
+def test_nee_sobol_session_agrees(nee_renders):
+    # NEE exposes the Cornell knife edge of tests/test_torch_nee.py (a
+    # camera hit left inside its sphere shadows its own light sample) on
+    # 2-7% of rays, and a pixel sums 8 of them: at least 75% of pixels
+    # within 1e-4 (measured 86.3%), channel means within 1% (0.34%).
+    t, j = nee_renders
+    assert t.status == RenderStatus.DONE and t.chunks == 2
+    assert t.image.shape == j.image.shape == (16, 16, 3)
+    assert np.isfinite(t.image).all() and (t.image >= 0).all()
+    ok = np.isclose(t.image, j.image, rtol=1e-4, atol=1e-4).all(-1)
+    assert ok.mean() >= 0.75, f"only {ok.mean():.2%} of pixels agree"
+    rel = np.abs(t.image.mean((0, 1)) - j.image.mean((0, 1))) / j.image.mean((0, 1))
+    assert (rel <= 1e-2).all(), f"channel means differ by {rel}"
+
+
+def test_cli_nee_sobol_flags(tmp_path):
+    path = tmp_path / "nee.png"
+    rc = main(
+        ["--device", "cpu", "--integrator", "nee", "--sampler", "sobol", "--nee-clamp", "inf",
+         "--width", "8", "--height", "8", "--spp", "2", "--max-depth", "4", "-o", str(path)]
+    )
+    assert rc == 0
+    assert read_png(str(path)).shape == (8, 8, 3)
+
+
 def test_cli_renders_png(tmp_path):
     path = tmp_path / "cli.png"
     rc = main(
-        ["--device", "cpu", "--backend", "torch", "--width", "16", "--height", "16",
+        ["--device", "cpu", "--width", "16", "--height", "16",
          "--spp", "4", "--max-depth", "4", "-o", str(path)]
     )
     assert rc == 0
@@ -95,7 +140,7 @@ def test_cli_renders_png(tmp_path):
 def test_python_m_entry(tmp_path):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run(
-        [sys.executable, "-m", "cornelis_tpu_torch", "--device", "cpu", "--backend", "torch",
+        [sys.executable, "-m", "cornelis_tpu_torch", "--device", "cpu",
          "--width", "16", "--height", "16", "--spp", "2", "--max-depth", "4", "-o", "m.png"],
         cwd=tmp_path, env=dict(os.environ, PYTHONPATH=repo), capture_output=True, text=True,
         timeout=300,
@@ -108,7 +153,7 @@ def test_cli_scene_file(tmp_path):
     scene = tmp_path / "scene.json"
     cornell_box().save(str(scene))
     rc = main(
-        ["--scene", str(scene), "--device", "cpu", "--backend", "torch", "--width", "8",
+        ["--scene", str(scene), "--device", "cpu", "--width", "8",
          "--height", "8", "--spp", "1", "--max-depth", "2", "-o", str(tmp_path / "f.png")]
     )
     assert rc == 0 and (tmp_path / "f.png").exists()
@@ -117,19 +162,20 @@ def test_cli_scene_file(tmp_path):
 def test_defaults_are_the_main_path():
     o = RenderOptions()
     assert (o.width, o.height, o.samples_aa, o.max_depth) == (512, 512, 256, 64)
-    assert (o.sampler, o.integrator, o.device, o.backend) == ("uniform", "path", "cuda", "cuda")
+    assert (o.sampler, o.integrator, o.nee_clamp, o.device) == ("uniform", "path", None, "cuda")
     # About 8M rays per launch on CUDA: 32 spp per chunk, 8 launches.
     assert o.resolved_spp_chunk() == 32
-    assert RenderOptions(device="cpu", backend="torch").resolved_spp_chunk() == 8
+    assert RenderOptions(device="cpu").resolved_spp_chunk() == 8
 
 
 @pytest.mark.parametrize(
     "kwargs,error",
     [
-        (dict(sampler="sobol"), NotImplementedError),
-        (dict(integrator="nee"), NotImplementedError),
-        (dict(device="cpu"), ValueError),  # the cuda backend needs a CUDA device
-        (dict(backend="xla"), ValueError),
+        (dict(sampler="halton"), ValueError),
+        (dict(integrator="bdpt"), ValueError),
+        (dict(nee_clamp=0), ValueError),
+        (dict(nee_clamp=-1), ValueError),
+        (dict(device="tpu"), ValueError),
         (dict(samples_aa=0), ValueError),
         (dict(width=0), ValueError),
     ],
@@ -144,7 +190,7 @@ def test_no_output_file(tmp_path, monkeypatch):
     res = RenderSession(
         cornell_box(),
         RenderOptions(width=4, height=4, samples_aa=1, max_depth=1, output=None,
-                      device="cpu", backend="torch"),
+                      device="cpu"),
     ).render()
     assert res.status == RenderStatus.DONE and not list(tmp_path.iterdir())
     # Depth 1 sees only emitters directly: the light sphere or black.

@@ -9,33 +9,57 @@ raises, so the exit code is not 0 and no result line is printed:
 
   1. card and tools: the device, its power limit, torch, CUDA, nvcc;
   2. build: every library of ops/csrc/ with nvcc, in parallel, timed, and
-     the registers and spills of each kernel instantiation;
+     the registers and spills of each kernel instantiation (the four
+     sphere-and-plane megakernel instantiations held to their counts
+     before the SDF ones were added); then the warm-up path (K2):
+     warm_kernels() loads every library and megakernel instantiation and
+     launches the zero fill, whose output must equal torch.zeros, with
+     the seconds of the load and of the first launch; and the first and
+     second launch of every instantiation after it;
   3. kernel against plain: each megakernel instantiation (mode path or
      nee, sampler uniform or sobol) and its plain torch version on the
      same card, ray by ray, at 64x64, 16 spp, max_depth 64, on
-     cornell_box, cornell_panel and a mixed sphere + panel scene; the
-     dynamic-scene render (K3: the same kernel fed by the light table
-     built on the device) on cornell_box and cornell_panel; the table
-     kernel against its plain version; doubling every emission doubles
-     K3's nee image; and neither that edit nor a moved sphere builds or
-     loads a library again;
+     cornell_box, cornell_panel and a mixed sphere + panel scene, and
+     each SDF instantiation on sdf_gallery and on a scene whose torus and
+     box are turned and scaled; the dynamic-scene render (K3: the same
+     kernel fed by the light table built on the device) on cornell_box
+     and cornell_panel; the table kernel against its plain version;
+     doubling every emission doubles K3's nee image; neither that edit
+     nor a moved sphere builds or loads a library again; the zero fill
+     (K2) and the probe kernels (K4 in float32 and bfloat16, K5, K6) at
+     their JAX shapes against their plain versions;
   4. the slices, each with the launch counts zeroed just before it and
      read just after: RenderSession(cornell_box(), RenderOptions(...))
      at 512x512, 256 spp, max_depth 64 with the PNG written, for the
      default path/uniform (checked region by region against the committed
      16384-spp render of the JAX package, tests/golden/ours_cornell_512.png)
      and for nee/sobol, path/sobol and nee/uniform (region means printed
-     only: the nee estimator is not the golden's); the command line at
-     128x128 for the default and for --integrator nee --sampler sobol;
-     render_chunk_dynamic over the same frame in every mode and sampler;
-  5. times: each instantiation and K3 against its plain version for one
-     32-spp chunk at 512x512 (spp_total 256; median of 3 after a
-     warm-up); the two outputs, and those of the last chunk (offset 224),
-     held to the phase-3 bar ray by ray; then the pinned NEE firefly of
+     only: the nee estimator is not the golden's); the same four
+     sessions on sdf_gallery, every launch through an SDF instantiation
+     (region means printed); the command line at 128x128 for the default,
+     for --integrator nee --sampler sobol and for --scene sdf-gallery;
+     render_chunk_dynamic over the Cornell frame in every mode and
+     sampler; the two probes' command lines (K5 and K6, K4);
+  5. times: each instantiation and K3 for one 32-spp chunk at 512x512
+     (spp_total 256; median of 3 after a warm-up) against one run of its
+     plain version (the same chunk on Cornell; on sdf_gallery every
+     SDF_STRIDE-th ray of it, traced as its (pixel, sample), as 128-step
+     marches in torch ops over 8.4M rays take long); the two outputs, and
+     those of the last chunk (offset 224), held to the phase-3 bar ray by
+     ray; the probes at their JAX shapes and the zero fill against
+     torch.zeros (CUDA events); then the pinned NEE firefly of
      tests/test_nee.py on the kernel, clamp off and on (printed only).
 
-The last lines are a JSON record of the kernels and then
-{"ok": true, "device": {...}}.
+Each kernel's least time (bound_ms) is computed from this run's inputs:
+for the megakernel, the float32 operations of the work the kernel does
+for the timed rays (closest-hit scans, hits, bounces, light samples,
+shadow rays and lit samples, SDF march steps and normals; counted by
+`counted_work` on a second run of the plain version) at the per-part
+counts of OPS, over 67 TFLOP/s; for the others, the larger of their
+operations over the peak of their type (float32 67, bfloat16 outside the
+tensor cores 133.8 TFLOP/s) and their bytes over 3.35 TB/s. The last
+lines are a JSON record of the kernels and then {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -79,8 +103,69 @@ FIREFLY_PIXEL, FIREFLY_SAMPLES, FIREFLY_SPP_TOTAL = 77580, (544, 576), 2048
 VARIANTS = (("path", "uniform"), ("path", "sobol"), ("nee", "uniform"), ("nee", "sobol"))
 CSRC = "cornelis_tpu_torch/ops/csrc/"
 K1_TPU = "cornelis_tpu/ops/pallas_integrator.py:616"
+K2_TPU = "cornelis_tpu/ops/pallas_integrator.py:224"
 K3_TPU = "cornelis_tpu/ops/pallas_dynamic.py:174"
+K4_TPU = "benchmarks/bf16_probe.py:36"
+K5_TPU = "benchmarks/dynamic_scene_probe.py:61"
+K6_TPU = "benchmarks/dynamic_scene_probe.py:94"
 TABLE = "light_table_dyn"
+ZERO = "zero_fill"
+BAKED, DYNAMIC = "scan_baked", "scan_dynamic"
+QUAD = {"float32": "quad_probe f32", "bfloat16": "quad_probe bf16"}
+# Registers of the sphere-and-plane instantiations before the SDF ones
+# were added (ptxas; PERF.md): the SDF template parameter must not move them.
+CORNELL_REGISTERS = {"path/uniform": 58, "path/sobol": 56, "nee/uniform": 72, "nee/sobol": 72}
+# The SDF phase-5 plain version traces every SDF_STRIDE-th ray of the
+# kernel's 32-spp chunk (a stride prime to 32, so every sample index of
+# the chunk is among them): 270,601 rays.
+SDF_STRIDE = 31
+# Probe bars: float32 within 1 ulp (rtol 2^-23); bfloat16 within 1 ulp of
+# bfloat16 (rtol 2^-8): the kernel's __hadd rounds the exact sum once,
+# torch rounds it to float32 first and then to bfloat16.
+F32_ULP = 2.0 ** -23
+BF16_ULP = 2.0 ** -8
+
+# The card's peaks at 700 W: float32 outside the tensor cores and device
+# memory (NVIDIA's H100 SXM data sheet), bfloat16 outside the tensor cores
+# (NVIDIA's H100 architecture whitepaper, SXM5).
+PEAK_FP32 = 67e12
+PEAK_BF16 = 133.8e12
+PEAK_BYTES = 3.35e12
+# Float32 operations of each part of the megakernel, counted from
+# ops/csrc/megakernel.cu (a sqrt, division, sin, cos or exp counts as 1;
+# integer hashing of the draws counts as 0; where the work takes one of
+# two branches, the cheaper; so these are lower bounds):
+#   camera: jitter, generate_rays and normalize, once per ray;
+#   scan: ray_pre once per closest-hit scan, plus per sphere sphere_t,
+#     the winner's point and normal, per plane plane_t (without its basis,
+#     a per-plane constant), and with SDF rows sdf_ray plus per SDF its
+#     load, final test and t conversion;
+#   hit: emission, two draws' floats, Russian roulette;
+#   bounce: construct_basis (30), the hemisphere lobe (25; the glossy one
+#     takes 70), layered_eval (172), the throughput and origin update
+#     (20); bounce_pdf: layered_sample's glossy_pdf mixture in mode path,
+#     the layered_pdf_true that replaces it in mode nee;
+#   nee_hit, every hit: sample_light at its plane branch without the
+#     plane's basis (44; the sphere cone takes about 95), cos and its test;
+#   nee_emission, every hit after the first: emission's MIS weight and
+#     clamp; nee_shadow, every shadow ray cast: its origin and ray_pre (the
+#     scan is not counted: it may stop at its first occluder); nee_shade,
+#     every unoccluded light sample: layered_eval, layered_pdf_true, MIS,
+#     clamps and sum;
+#   sdf_step: one march step by kind (point, centre, rotation, scale,
+#     distance, tests, step); sdf_normal: the tetrahedron normal by kind.
+OPS = {
+    "camera": 25, "ray_pre": 14, "sphere": 25, "sphere_win": 20, "plane": 35,
+    "sdf_ray": 16, "sdf": 6, "hit": 23, "bounce": 247, "bounce_pdf": {"path": 46, "nee": 47},
+    "nee_hit": 50, "nee_emission": 13, "nee_shadow": 20, "nee_shade": 243,
+    "sdf_step": {0: 44, 1: 55, 2: 48}, "sdf_normal": {0: 101, 1: 145, 2: 117},
+}
+# Operations per element and object of the probes, from csrc/probes.cu:
+# the scan 23 (24 with K6's r * r); the quadratic chain 9 in the working
+# type (x c + d, x x - 2c x + k, b b - cc, the sum) and 3 in float32
+# (compare, max, sqrt), plus 2 conversions in bfloat16.
+SCAN_OPS = {BAKED: 23, DYNAMIC: 24}
+QUAD_OPS = {"float32": dict(fp32=12), "bfloat16": dict(bf16=9, fp32=5)}
 
 
 def phase(msg: str) -> None:
@@ -90,14 +175,6 @@ def phase(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()
-    return out[0]
 
 
 def nvcc_release() -> str:
@@ -135,6 +212,24 @@ def panel_scene():
     return s
 
 
+def instantiation_name(entry: str) -> str:
+    """The report name of a kernel from its mangled entry name."""
+    m = re.search(r"megakernelILb([01])ELb([01])ELb([01])E", entry)
+    if m:
+        name = kernel_name("megakernel", ("path", "nee")[int(m.group(1))],
+                           ("uniform", "sobol")[int(m.group(2))])
+        return name + (" sdf" if m.group(3) == "1" else "")
+    m = re.search(r"scan_bakedILi(\d+)E", entry)
+    if m:
+        return f"{BAKED} {m.group(1)}"
+    if "quad_probe" in entry:
+        return QUAD["bfloat16" if "bfloat16" in entry else "float32"]
+    for name in (DYNAMIC, ZERO, TABLE):
+        if name in entry:
+            return name
+    return entry
+
+
 def ptxas_report(logs: dict) -> dict:
     """{kernel name: (registers, stack bytes, spill store + load bytes)}
     from nvcc's -Xptxas=-v output."""
@@ -143,10 +238,7 @@ def ptxas_report(logs: dict) -> dict:
         for line in log.splitlines():
             entry = re.search(r"Compiling entry function '([^']+)'", line)
             if entry:
-                m = re.search(r"megakernelILb([01])ELb([01])E", entry.group(1))
-                current = (kernel_name("megakernel", ("path", "nee")[int(m.group(1))],
-                                       ("uniform", "sobol")[int(m.group(2))])
-                           if m else TABLE)
+                current = instantiation_name(entry.group(1))
                 report[current] = [None, None, None]
             frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if frame and current:
@@ -197,12 +289,139 @@ def golden_regions(png_path: str):
     return worst, [float(b) for b in bias], int(clean.sum())
 
 
-def timed(fn, reps=3):
+def sass_counts(libraries: dict) -> dict:
+    """{kernel name: SASS instructions} by cuobjdump, where the toolkit has
+    it; {} otherwise."""
+    from cornelis_tpu_torch.ops.build import _nvcc
+
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    counts, current = {}, None
+    for so, _seconds in libraries.values():
+        out = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True).stdout
+        for line in out.splitlines():
+            fn = re.search(r"Function : (\S+)", line)
+            if fn:
+                current = instantiation_name(fn.group(1))
+                counts[current] = 0
+            elif current and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+                counts[current] += 1
+    return counts
+
+
+def counted_work(megakernel, run):
+    """(run()'s result, the work the kernel does for the same rays): run()
+    calls the plain version, whose `intersect`, `_sample_light` and
+    `occluded` are wrapped for the call. The plain version traces every ray
+    at every depth under a mask, and leaves a finished ray's origin and
+    direction as they were; a ray is live at a depth (its kernel thread
+    still runs) when they moved since the depth before. Counts: "traced"
+    closest-hit scans, "hits" and "later_hits" (after the first bounce),
+    "bounces" (live at the next depth: a bounce at the last depth is not
+    seen), "sdf_hits" (each needing a normal), "march_steps" {kind:
+    steps}, and in mode nee "shadow_rays" (valid light samples facing the
+    surface) and "lit" (those unoccluded)."""
+    import torch
+
+    from cornelis_tpu_torch.geometry import sdf_march_steps
+    from cornelis_tpu_torch.math.vec import Vec3, dot
+
+    names = ("intersect", "_sample_light", "occluded")
+    orig = {name: getattr(megakernel, name) for name in names}
+    counts, state = {}, {}
+
+    def add(key, mask):
+        counts[key] = counts.get(key, 0) + mask.sum()
+
+    def intersect(tables, o, d):
+        out = orig["intersect"](tables, o, d)
+        _t, _p, n, _mid, prim, hit = out
+        od = torch.stack([*o, *d])
+        later = "od" in state
+        live = (state["live"] & (od != state["od"]).any(0)) if later else torch.ones_like(hit)
+        if later:
+            add("bounces", live)
+            add("later_hits", live & hit)
+        state.update(od=od, live=live, shaded=live & hit, n=n)
+        add("traced", live)
+        add("hits", live & hit)
+        add("sdf_hits", live & hit & (prim < 0))
+        for kind, center, params, _m, rot, scale in megakernel._sdf_rows(tables):
+            steps = sdf_march_steps(Vec3(*(c[live] for c in o)), Vec3(*(c[live] for c in d)),
+                                    kind, center, params, rot, scale)
+            add(("march", kind), steps)
+        return out
+
+    def sample_light(*args):
+        out = orig["_sample_light"](*args)
+        wi, _t, _pdf, valid, _le = out
+        state["cast"] = state["shaded"] & valid & (dot(wi, state["n"]) > 0.0)
+        add("shadow_rays", state["cast"])
+        return out
+
+    def occluded(tables, o, d, t_max):
+        occ = orig["occluded"](tables, o, d, t_max)
+        add("lit", state["cast"] & ~occ)
+        return occ
+
+    wrappers = {"intersect": intersect, "_sample_light": sample_light, "occluded": occluded}
+    try:
+        for name in names:
+            setattr(megakernel, name, wrappers[name])
+        result = run()
+    finally:
+        for name in names:
+            setattr(megakernel, name, orig[name])
+    work = {"march_steps": {}}
+    for key, n in counts.items():
+        if isinstance(key, tuple):
+            work["march_steps"][key[1]] = int(n)
+        else:
+            work[key] = int(n)
+    return result, work
+
+
+def megakernel_bound_ms(work: dict, n_rays: int, tables, mode: str, scale: float = 1.0) -> float:
+    """The least time of one megakernel launch: the float32 operations of
+    the work `counted_work` counted (times `scale` where the plain version
+    traced a sample of the launch's rays) over PEAK_FP32; the launch reads
+    tables of a few hundred bytes and writes 12 B a ray, far less by the
+    bytes."""
+    n_s, n_p, n_k = (tables.spheres.shape[0], tables.planes.shape[0], tables.sdfs.shape[0])
+    scan = (OPS["ray_pre"] + n_s * OPS["sphere"] + (n_s > 0) * OPS["sphere_win"]
+            + n_p * OPS["plane"] + (n_k > 0) * (OPS["sdf_ray"] + n_k * OPS["sdf"]))
+    kinds = [int(k) for k in tables.sdfs[:, 0].tolist()]
+    traced = (
+        work["traced"] * scan
+        + work["hits"] * OPS["hit"]
+        + work.get("bounces", 0) * (OPS["bounce"] + OPS["bounce_pdf"][mode])
+        + sum(OPS["sdf_step"][k] * n for k, n in work["march_steps"].items())
+        + (work["sdf_hits"] * min(OPS["sdf_normal"][k] for k in kinds) if kinds else 0)
+    )
+    if mode == "nee":
+        traced += (work["hits"] * OPS["nee_hit"] + work.get("later_hits", 0) * OPS["nee_emission"]
+                   + work.get("shadow_rays", 0) * OPS["nee_shadow"]
+                   + work.get("lit", 0) * OPS["nee_shade"])
+    ops = n_rays * OPS["camera"] + scale * traced
+    return max(ops / PEAK_FP32, n_rays * 12 / PEAK_BYTES) * 1e3
+
+
+def bound_ms(nbytes: float, fp32: float = 0.0, bf16: float = 0.0):
+    """(least milliseconds, "operations" or "bytes") of a kernel moving
+    `nbytes` and doing `fp32` float32 and `bf16` bfloat16 operations
+    outside the tensor cores."""
+    t_ops, t_bytes = fp32 / PEAK_FP32 + bf16 / PEAK_BF16, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def timed(fn, reps=3, warmup=True):
     """(median seconds of `reps` calls after one warm-up, synchronized;
     the last call's result)."""
     import torch
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -238,12 +457,28 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from cornelis_tpu_torch import RenderOptions, RenderSession, RenderStatus
     from cornelis_tpu_torch.__main__ import main as cli_main
-    from cornelis_tpu_torch.ops import build, lights, megakernel
+    from cornelis_tpu_torch.ops import build, lights, megakernel, warm
     from cornelis_tpu_torch.ops.dynamic import render_chunk_dynamic
+    from cornelis_tpu_torch.probes import bf16 as bf16_probe
+    from cornelis_tpu_torch.probes import scene_table
     from cornelis_tpu_torch.rng import key_row
     from cornelis_tpu_torch.scene.compile import compile_scene
-    from cornelis_tpu_torch.scene.library import cornell_box, cornell_panel
+    from cornelis_tpu_torch.scene.library import (
+        cornell_box,
+        cornell_panel,
+        sdf_gallery,
+        sdf_gallery_transformed,
+    )
     from cornelis_tpu_torch.utils.png import read_png
+    from cornelis_tpu_torch.utils.timing import card_line, event_ms
+
+    t_start = time.perf_counter()
+    t_phase = [t_start]
+
+    def phase_done():
+        now = time.perf_counter()
+        print(f"   ({now - t_phase[0]:.1f} s)")
+        t_phase[0] = now
 
     phase("1. card and tools")
     card = card_line()
@@ -259,18 +494,25 @@ def main() -> int:
     print(f"built {len(built)} libraries in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"{os.path.relpath(so, REPO)} ({s:.1f} s)" for so, s in built.values()))
     ptxas = ptxas_report(build.BUILD_LOGS)
+    sass = sass_counts(built)
     for name, (regs, stack, spill) in sorted(ptxas.items()):
-        print(f"  {name}: {regs} registers, {stack} B stack, {spill} B spilled")
-    check(len(ptxas) == 5, f"expected 5 kernel instantiations, ptxas reported {sorted(ptxas)}")
+        print(f"  {name}: {regs} registers, {stack} B stack, {spill} B spilled"
+              + (f", {sass[name]} SASS instructions" if name in sass else ""))
+    check(len(ptxas) == 15, f"expected 15 kernel instantiations, ptxas reported {sorted(ptxas)}")
+    # Checked at the end, so that a run that fails here still reports the rest.
+    kept = {v: ptxas[f"megakernel {v}"][0] for v in CORNELL_REGISTERS}
+    print(f"the sphere-and-plane instantiations' registers: {kept} (before the SDF "
+          f"instantiations: {CORNELL_REGISTERS})")
 
     # Every kernel of the report: {name: dict of the kernels line}.
     records = {}
 
-    def record(name, source, replaces, instantiation):
+    def record(name, source, replaces, instantiation, tol=RAY_TOL):
         records[name] = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "registers": ptxas[instantiation][0],
-            "launches": 0, "fracs": [], "errs": [], "ms": None, "plain_ms": None,
+            "registers": ptxas[instantiation][0], "launches": 0, "fracs": [], "errs": [],
+            "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": "operations",
+            "library_ms": None, "tol": tol,
         }
 
     for mode, sampler in VARIANTS:
@@ -278,9 +520,59 @@ def main() -> int:
         inst = kernel_name("megakernel", mode, sampler)
         record(inst, src, K1_TPU, inst)
         record(kernel_name("dynamic", mode, sampler), src, K3_TPU, inst)
-    record(TABLE, CSRC + "lights.cu", K3_TPU, TABLE)
+        record(inst + " sdf", src, K1_TPU, inst + " sdf")
+    record(TABLE, CSRC + "lights.cu", K3_TPU, TABLE, tol=F32_ULP)
+    record(ZERO, CSRC + "warm.cu", K2_TPU, ZERO, tol=0.0)
+    record(BAKED, CSRC + "probes.cu", K5_TPU, f"{BAKED} {scene_table.DEFAULT_N}", tol=F32_ULP)
+    record(DYNAMIC, CSRC + "probes.cu", K6_TPU, DYNAMIC, tol=F32_ULP)
+    for dtype, name in QUAD.items():
+        record(name, CSRC + "probes.cu", K4_TPU, name,
+               tol=F32_ULP if dtype == "float32" else BF16_ULP)
 
+    # K2's main path: the warm-up before anything is timed.
+    warm.LAUNCHES = 0
+    warmed = warm.warm_kernels()
+    records[ZERO]["launches"] = warm.LAUNCHES
+    zeros = warmed["zeros"]
+    check(zeros.shape == (8, 128) and zeros.dtype == torch.float32
+          and torch.equal(zeros, torch.zeros((8, 128), device="cuda")), "the zero fill is not zeros")
+    records[ZERO]["fracs"].append(1.0)
+    records[ZERO]["errs"].append(zeros.abs().max().item())
+    print(f"warm_kernels(): load of every library and megakernel instantiation "
+          f"{warmed['load_s'] * 1e3:.3f} ms, first zero fill {warmed['first_launch_s'] * 1e3:.3f} ms, "
+          "output equal to torch.zeros((8, 128))")
+
+    # Does the forced load take the load out of each instantiation's first
+    # launch? The light-table kernel was not forced: its first launch shows
+    # what a lazy load costs.
     k0, k1, root = key_row(SEED)
+    tiny = {False: compile_scene(cornell_box(), device="cuda"),
+            True: compile_scene(sdf_gallery(), device="cuda")}
+    for sdf in (False, True):
+        for mode, sampler in VARIANTS:
+            lt = lights.light_table(tiny[sdf]) if mode == "nee" else None
+            launch_s = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                megakernel.render_rays(tiny[sdf], k0, k1, 8, 8, 1, 0, 1, root=root,
+                                       sampler=sampler, mode=mode, lights=lt)
+                torch.cuda.synchronize()
+                launch_s.append(time.perf_counter() - t0)
+            name = kernel_name("megakernel", mode, sampler) + (" sdf" if sdf else "")
+            print(f"  {name}, 8x8x1 at depth 1: first launch {launch_s[0] * 1e3:.3f} ms, "
+                  f"second {launch_s[1] * 1e3:.3f} ms")
+    table_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lights.light_table_dyn(tiny[False])
+        torch.cuda.synchronize()
+        table_s.append(time.perf_counter() - t0)
+    print(f"  {TABLE} (not forced): first launch {table_s[0] * 1e3:.3f} ms, "
+          f"second {table_s[1] * 1e3:.3f} ms")
+    phase_done()
+
     smoke_bits = megakernel.index_bits_for(SMOKE["spp"])
 
     def variant_args(tables, mode, sampler, dynamic, bits, lights_fn=None):
@@ -349,11 +641,66 @@ def main() -> int:
           "a scene edit built or loaded a library")
     print("the emission edit and the moved sphere built and loaded no library")
 
+    # K1's SDF instantiations on the implicit-surface scenes.
+    for scene_name, desc in (("sdf_gallery", sdf_gallery()),
+                             ("sdf_transformed", sdf_gallery_transformed())):
+        tables = compile_scene(desc, device="cuda")
+        check(tables.sdfs.shape[0] == 3, f"{scene_name} has {tables.sdfs.shape[0]} SDF rows")
+        args = (tables, k0, k1, SMOKE["width"], SMOKE["height"], SMOKE["spp"], 0,
+                SMOKE["max_depth"])
+        for mode, sampler in VARIANTS:
+            name = kernel_name("megakernel", mode, sampler) + " sdf"
+            kw = variant_args(tables, mode, sampler, False, smoke_bits)
+            before = megakernel.SDF_LAUNCHES
+            kern = megakernel.render_rays(*args, **kw)
+            torch.cuda.synchronize()
+            check(megakernel.SDF_LAUNCHES == before + 1, f"{name}: not an SDF launch")
+            plain = megakernel.render_rays_reference(*args, device="cuda", **kw)
+            frac, err = hold_to_plain(f"{name} on {scene_name}", kern, plain)
+            records[name]["fracs"].append(frac)
+            records[name]["errs"].append(err)
+
+    # K2 and the probes at their JAX shapes against their plain versions.
+    zeros = warm.zero_block("cuda")
+    torch.cuda.synchronize()
+    check(torch.equal(zeros, warm.zero_block_reference("cuda")), "zero fill != torch.zeros")
+    records[ZERO]["fracs"].append(1.0)
+    records[ZERO]["errs"].append(zeros.abs().max().item())
+
+    def hold_probe(name, kern, plain, rtol):
+        torch.cuda.synchronize()
+        k, p = kern.float(), plain.float()
+        fin = torch.isfinite(p)
+        check(torch.equal(torch.isfinite(k), fin), f"{name}: finite entries differ")
+        close = torch.isclose(k, p, rtol=rtol, atol=0.0)
+        err = (k[fin] - p[fin]).abs().max().item() if bool(fin.any()) else 0.0
+        frac = close.double().mean().item()
+        print(f"{name}: {frac:.4%} within rtol {rtol:g}, {(k == p).double().mean().item():.4%} "
+              f"equal, max |diff| {err:.3g}, {fin.double().mean().item():.2%} finite")
+        check(bool(close.all()), f"{name}: not within rtol {rtol:g} of its plain version")
+        records[name]["fracs"].append(frac)
+        records[name]["errs"].append(err)
+
+    o = scene_table.probe_input("cuda")
+    tab = scene_table.table(scene_table.DEFAULT_N, "cuda")
+    hold_probe(BAKED, scene_table.scan_baked(o, scene_table.DEFAULT_N),
+               scene_table.scan_baked_reference(o, scene_table.DEFAULT_N), F32_ULP)
+    hold_probe(DYNAMIC, scene_table.scan_dynamic(o, tab),
+               scene_table.scan_dynamic_reference(o, tab), F32_ULP)
+    for dtype, name in QUAD.items():
+        x = bf16_probe.probe_input(getattr(torch, dtype), "cuda")
+        hold_probe(name, bf16_probe.quad_probe(x), bf16_probe.quad_reference(x),
+                   records[name]["tol"])
+    phase_done()
+
     phase("4. the slices at 512x512, 256 spp, max_depth 64 (counts zeroed before each)")
 
     def zero_counts():
         megakernel.LAUNCHES = 0
+        megakernel.SDF_LAUNCHES = 0
         lights.LAUNCHES = 0
+        scene_table.LAUNCHES.update(baked=0, dynamic=0)
+        bf16_probe.LAUNCHES.update(float32=0, bfloat16=0)
 
     with tempfile.TemporaryDirectory() as tmp:
         for mode, sampler in VARIANTS:
@@ -397,6 +744,56 @@ def main() -> int:
             check(rc == 0 and img.shape == (128, 128, 3) and img.max() > 0, "CLI render failed")
             check(megakernel.LAUNCHES == 1, "the CLI did not launch the kernel")
 
+        # The implicit-surface scene through the session, in every variant.
+        for mode, sampler in VARIANTS:
+            png = os.path.join(tmp, f"sdf_{mode}_{sampler}.png")
+            opts = RenderOptions(output=png, device="cuda", integrator=mode, sampler=sampler)
+            session = RenderSession(sdf_gallery(), opts)
+            zero_counts()
+            t0 = time.perf_counter()
+            result = session.render()
+            torch.cuda.synchronize()
+            render_s = time.perf_counter() - t0
+            launches, sdf_launches = megakernel.LAUNCHES, megakernel.SDF_LAUNCHES
+            name = kernel_name("megakernel", mode, sampler) + " sdf"
+            records[name]["launches"] = sdf_launches
+            chunks = -(-opts.samples_aa // opts.resolved_spp_chunk())
+            print(f"{name} sdf_gallery: {opts.width}x{opts.height}, {opts.samples_aa} spp, "
+                  f"max_depth {opts.max_depth}: {result.status.name} in {render_s:.3f} s, "
+                  f"{launches} launches ({sdf_launches} SDF) for {chunks} chunks")
+            check(result.status == RenderStatus.DONE, f"status {result.status}")
+            check(launches == sdf_launches == chunks == result.chunks,
+                  f"{launches} launches, {sdf_launches} SDF, for {chunks} chunks")
+            img = result.image
+            check(img.shape == (512, 512, 3) and bool((img >= 0).all()) and img.mean() > 0,
+                  "bad image")
+            check(bool(torch.isfinite(torch.from_numpy(img)).all()), "image not finite")
+            check(read_png(png).shape == (512, 512, 3), "PNG not written")
+            quads = img.reshape(2, 256, 2, 256, 3).mean(axis=(1, 3))
+            print(f"  image mean {[round(v, 4) for v in img.mean((0, 1)).tolist()]}; quadrant "
+                  f"means (top left, top right, bottom left, bottom right) "
+                  f"{[[round(v, 4) for v in q] for q in quads.reshape(4, 3).tolist()]}")
+
+        cli_png = os.path.join(tmp, "cli_sdf.png")
+        zero_counts()
+        rc = cli_main(["--scene", "sdf-gallery", "--width", "128", "--height", "128", "--spp", "16",
+                       "-o", cli_png])
+        img = read_png(cli_png)
+        print(f"python -m cornelis_tpu_torch --scene sdf-gallery at 128x128, 16 spp: rc {rc}, "
+              f"{megakernel.SDF_LAUNCHES} SDF launch, PNG {img.shape}")
+        check(rc == 0 and img.shape == (128, 128, 3) and img.max() > 0, "SDF CLI render failed")
+        check(megakernel.LAUNCHES == megakernel.SDF_LAUNCHES == 1, "the CLI made no SDF launch")
+
+    # The probes' command lines: the probe path of K5 and K6, and of K4.
+    zero_counts()
+    check(scene_table.main([]) == 0, "the scene-table probe failed")
+    records[BAKED]["launches"] = scene_table.LAUNCHES["baked"]
+    records[DYNAMIC]["launches"] = scene_table.LAUNCHES["dynamic"]
+    zero_counts()
+    check(bf16_probe.main() == 0, "the bf16 probe failed")
+    for dtype, name in QUAD.items():
+        records[name]["launches"] = bf16_probe.LAUNCHES[dtype]
+
     opts = RenderOptions()
     spp_chunk = opts.resolved_spp_chunk()
     tables = compile_scene(cornell_box(), device="cuda")
@@ -425,44 +822,101 @@ def main() -> int:
         check(launches == chunks and table_launches == (chunks if mode == "nee" else 0),
               f"{launches} launches and {table_launches} table builds for {chunks} chunks")
         check(bool(torch.isfinite(frame).all()) and bool((frame >= 0).all()), "bad dynamic frame")
+    phase_done()
 
-    phase("5. times and agreement at the main path's chunk (512x512, 32 spp, median of 3)")
+    phase("5. times and agreement at the main path's chunk (512x512, 32 spp; kernel median "
+          "of 3, plain one run)")
     rays = 512 * 512 * 32
     bits = megakernel.index_bits_for(opts.samples_aa)
-    for dynamic in (False, True):
+    scenes5 = {False: tables, True: compile_scene(sdf_gallery(), device="cuda")}
+    strided = torch.arange(0, rays, SDF_STRIDE, device="cuda")
+    for dynamic, sdf in ((False, False), (True, False), (False, True)):
+        scene5 = scenes5[sdf]
         for mode, sampler in VARIANTS:
-            name = kernel_name("dynamic" if dynamic else "megakernel", mode, sampler)
+            name = (kernel_name("dynamic" if dynamic else "megakernel", mode, sampler)
+                    + (" sdf" if sdf else ""))
+            args = (scene5, k0, k1, 512, 512, 32)
 
-            def run(offset, plain):
+            def kernel(offset):
+                kw = variant_args(scene5, mode, sampler, dynamic, bits)
+                return megakernel.render_rays(*args, offset, 64, **kw)
+
+            def plain(offset):
                 # K3's table is rebuilt per chunk, as render_chunk_dynamic does.
-                build_fn = lights.light_table_dyn_reference if plain else None
-                kw = variant_args(tables, mode, sampler, dynamic, bits, build_fn)
-                args = (tables, k0, k1, 512, 512, 32, offset, 64)
-                if plain:
-                    return megakernel.render_rays_reference(*args, device="cuda", **kw)
-                return megakernel.render_rays(*args, **kw)
+                kw = variant_args(scene5, mode, sampler, dynamic, bits,
+                                  lights.light_table_dyn_reference)
+                if sdf:  # the strided rays, each traced as its (pixel, sample)
+                    kw.update(pixel=strided // 32, sample=offset + strided % 32)
+                return megakernel.render_rays_reference(*args, offset, 64, "cuda", **kw)
 
-            kernel_s, kern = timed(lambda: run(0, False))
-            plain_s, plain = timed(lambda: run(0, True))
-            records[name]["ms"], records[name]["plain_ms"] = kernel_s * 1e3, plain_s * 1e3
+            kernel_s, kern = timed(lambda: kernel(0))
+            plain_s, ref = timed(lambda: plain(0), reps=1, warmup=False)
+            _, work = counted_work(megakernel, lambda: plain(0))
+            n_plain = ref.shape[0]
+            rec = records[name]
+            rec["ms"], rec["plain_ms"], rec["plain_rays"] = kernel_s * 1e3, plain_s * 1e3, n_plain
+            rec["bound_ms"] = megakernel_bound_ms(work, rays, scene5, mode, rays / n_plain)
             print(f"{name}: kernel {rays / kernel_s / 1e6:.1f} Mrays/s ({kernel_s * 1e3:.2f} ms), "
-                  f"plain {rays / plain_s / 1e6:.1f} Mrays/s ({plain_s * 1e3:.2f} ms) on {card}")
+                  f"plain on {n_plain} rays {n_plain / plain_s / 1e6:.2f} Mrays/s "
+                  f"({plain_s * 1e3:.2f} ms), bound {rec['bound_ms']:.4f} ms on {card}; work on "
+                  f"{n_plain} rays {work}")
             for offset in (0, 224):
                 if offset:
-                    kern = run(offset, False)
-                    torch.cuda.synchronize()
-                    plain = run(offset, True)
-                frac, err = hold_to_plain(f"  {name} 512x512, 32 spp, offset {offset}", kern, plain)
-                records[name]["fracs"].append(frac)
-                records[name]["errs"].append(err)
-                del kern, plain
+                    kern, ref = kernel(offset), plain(offset)
+                frac, err = hold_to_plain(
+                    f"  {name} 512x512, 32 spp, offset {offset}"
+                    + (f", every {SDF_STRIDE}th ray" if sdf else ""),
+                    kern[strided] if sdf else kern, ref)
+                rec["fracs"].append(frac)
+                rec["errs"].append(err)
+                del kern, ref
 
     tables = compile_scene(cornell_box(), device="cuda")
     kernel_s, _ = timed(lambda: lights.light_table_dyn(tables))
     plain_s, _ = timed(lambda: lights.light_table_dyn_reference(tables))
     records[TABLE]["ms"], records[TABLE]["plain_ms"] = kernel_s * 1e3, plain_s * 1e3
+    # About 30 operations per row; reads the tables, writes the rows.
+    n_rows = tables.spheres.shape[0] + tables.planes.shape[0]
+    records[TABLE]["bound_ms"], records[TABLE]["bound_by"] = bound_ms(
+        4 * (sum(t.numel() for t in tables) + n_rows * lights.LIGHT_COLS + 1), fp32=30 * n_rows)
     print(f"{TABLE} on cornell_box: kernel {kernel_s * 1e3:.4f} ms, plain {plain_s * 1e3:.4f} ms "
           f"(host clock around a synchronize)")
+
+    # K2 against torch.zeros, its plain version and its library call.
+    rec = records[ZERO]
+    rec["ms"] = event_ms(lambda: warm.zero_block("cuda"), 200)
+    rec["plain_ms"] = event_ms(lambda: warm.zero_block_reference("cuda"), 200)
+    rec["library_ms"] = event_ms(lambda: torch.zeros((8, 128), device="cuda"), 200)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(8 * 128 * 4)
+    print(f"{ZERO}: kernel {rec['ms']:.5f} ms, plain version {rec['plain_ms']:.5f} ms, "
+          f"torch.zeros {rec['library_ms']:.5f} ms (CUDA events, 200 launches)")
+
+    # The probes at their JAX shapes (CUDA events over 32 launches; the
+    # plain versions one run by the host clock). Operations: SCAN_OPS and
+    # QUAD_OPS per element and object; bytes: the input read, the output
+    # written (and K6's table read).
+    def time_probe(name, kern_fn, plain_fn, nbytes, **ops):
+        rec = records[name]
+        rec["ms"] = event_ms(kern_fn, 32)
+        rec["plain_ms"] = timed(plain_fn, reps=1, warmup=False)[0] * 1e3
+        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, **ops)
+        print(f"{name}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.2f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}) on {card}")
+
+    n_obj = scene_table.DEFAULT_N
+    o = scene_table.probe_input("cuda")
+    tab = scene_table.table(n_obj, "cuda")
+    time_probe(BAKED, lambda: scene_table.scan_baked(o, n_obj),
+               lambda: scene_table.scan_baked_reference(o, n_obj), 8 * o.numel(),
+               fp32=SCAN_OPS[BAKED] * o.numel() * n_obj)
+    time_probe(DYNAMIC, lambda: scene_table.scan_dynamic(o, tab),
+               lambda: scene_table.scan_dynamic_reference(o, tab), 8 * o.numel() + 16 * n_obj,
+               fp32=SCAN_OPS[DYNAMIC] * o.numel() * n_obj)
+    for dtype, name in QUAD.items():
+        x = bf16_probe.probe_input(getattr(torch, dtype), "cuda")
+        time_probe(name, lambda: bf16_probe.quad_probe(x), lambda: bf16_probe.quad_reference(x),
+                   2 * x.numel() * x.element_size(),
+                   **{k: v * x.numel() * bf16_probe.OBJECTS for k, v in QUAD_OPS[dtype].items()})
 
     # The firefly of tests/test_nee.py: Cornell 512^2, nee + sobol, spp_total
     # 2048, pixel 77580, samples 544-575, rendered as the chunk that holds it.
@@ -484,13 +938,19 @@ def main() -> int:
               f"sample {own.max().item():.6g}, pixel sum {own.sum(0).max().item():.6g}; plain "
               f"version: largest sample {plain.max().item():.6g}, pixel sum "
               f"{plain.sum(0).max().item():.6g}")
+    phase_done()
 
+    check(kept == CORNELL_REGISTERS, f"sphere-and-plane registers moved: {kept}")
+    check(ptxas["megakernel path/uniform"][2] == 0, "megakernel path/uniform spills")
     kernels = []
     for rec in records.values():
         fracs, errs = rec.pop("fracs"), rec.pop("errs")
         check(rec["launches"] > 0, f"{rec['name']} was not launched by its main path")
-        kernels.append({**rec, "min_fraction_within_tol": min(fracs), "max_abs_err": max(errs),
-                        "tol": RAY_TOL if rec["name"] != TABLE else 2.0 ** -23})
+        check(None not in (rec["ms"], rec["plain_ms"], rec["bound_ms"]),
+              f"{rec['name']} lacks a time")
+        kernels.append({**rec, "min_fraction_within_tol": min(fracs), "max_abs_err": max(errs)})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+    print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -3,9 +3,10 @@
 A port of the JAX package `cornelis_tpu` (which stays as the reference)
 to PyTorch, with the TPU's Pallas megakernel rewritten as a hand-written
 CUDA kernel for Hopper (ops/csrc/megakernel.cu). This package imports
-torch and numpy, never jax. So far it runs the path and NEE integrators
-with the uniform and Sobol samplers on spheres and planes, and the
-dynamic-scene render (ops/dynamic.py).
+torch and numpy, never jax. It runs the path and NEE integrators with the
+uniform and Sobol samplers on spheres, planes and SDF primitives, the
+dynamic-scene render (ops/dynamic.py, spheres and planes), the warm-up
+(ops/warm.py) and the TPU-era probes (probes/).
 """
 
 from .camera import Camera, generate_rays, look_at_host
@@ -26,6 +27,7 @@ from .scene.library import (
     BUILTIN_SCENES,
     cornell_box,
     cornell_panel,
+    sdf_gallery,
     sphere_grid,
     sphere_on_plane,
 )
@@ -61,6 +63,7 @@ __all__ = [
     "look_at_host",
     "mag2",
     "normalize",
+    "sdf_gallery",
     "sphere_grid",
     "sphere_on_plane",
 ]

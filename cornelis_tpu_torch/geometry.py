@@ -1,11 +1,13 @@
-"""Ray-primitive tests for spheres and finite planes.
+"""Ray-primitive tests for spheres, finite planes and SDF primitives.
 
-Counterpart of the analytic part of `cornelis_tpu/geometry.py`, with its
-reference quirks (Geometry.cpp): degenerate rays never hit, negative roots
-map to +inf before the near/far min, rays parallel to a plane miss, and
-plane extents are tested in the tangent basis of the plane normal. The
-`min_hit_t` self-intersection guard (COMPAT.md R10) rejects hits closer
-than T_MIN_SCALE * (1 + |o|_inf) in world units. SDFs are not ported yet.
+Counterpart of `cornelis_tpu/geometry.py`, with its reference quirks
+(Geometry.cpp): degenerate rays never hit, negative roots map to +inf
+before the near/far min, rays parallel to a plane miss, and plane extents
+are tested in the tangent basis of the plane normal. The `min_hit_t`
+self-intersection guard (COMPAT.md R10) rejects hits closer than
+T_MIN_SCALE * (1 + |o|_inf) in world units. SDF primitives (sphere, box,
+torus under rotation and uniform scale) are sphere-traced for
+SPHERE_TRACE_STEPS steps, in the JAX package's order of operations.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import math
 
 import torch
 
-from .math.vec import Vec3, construct_basis, dot, is_almost_zero, mag2, ray_at
+from .math.vec import Vec3, construct_basis, dot, is_almost_zero, mag2, normalize, ray_at
 
 INF = math.inf
 
@@ -28,11 +30,14 @@ def _degenerate(d: Vec3) -> torch.Tensor:
     return is_almost_zero(d.x) & is_almost_zero(d.y) & is_almost_zero(d.z)
 
 
-def min_hit_t(o: Vec3, d: Vec3) -> torch.Tensor:
-    """Minimum accepted hit distance for rays (o, d), divided by |d| to
-    convert from world units into the ray's own parameterization."""
+def min_hit_t(o: Vec3, d: Vec3 = None) -> torch.Tensor:
+    """Minimum accepted hit distance for rays from `o`, in world units;
+    with `d`, divided by |d| to convert into the ray's own
+    parameterization."""
     mag = torch.maximum(torch.maximum(torch.abs(o.x), torch.abs(o.y)), torch.abs(o.z))
     tmin = T_MIN_SCALE * (1.0 + mag)
+    if d is None:
+        return tmin
     deg = _degenerate(d)
     return tmin / torch.sqrt(torch.where(deg, 1.0, mag2(d)))
 
@@ -95,3 +100,153 @@ def plane_candidate(o: Vec3, d: Vec3, normal: Vec3, point: Vec3, width, height, 
     valid = ~_degenerate(d) & ~parallel_miss & ~backward & ~outside
     t = torch.where(valid, t, INF)
     return t, p, normal, valid
+
+
+# -- Implicit (SDF) surfaces (geometry.py:267-429 of the JAX package) --------
+
+SDF_KIND_SPHERE = 0
+SDF_KIND_BOX = 1
+SDF_KIND_TORUS = 2
+
+SPHERE_TRACE_STEPS = 128
+# Hit tolerance SDF_EPS * max(1, t): constant relative resolution. A march
+# closer than SDF_MIN_T (or min_hit_t) to its origin is no hit.
+SDF_EPS = 1e-4
+SDF_MIN_T = 1e-3
+SDF_MAX_T = 1e6
+# The plain march stops once every ray is done, checked this often. A done
+# ray keeps its t, so stopping then changes nothing.
+_DONE_CHECK = 8
+
+
+def sdf_distance(kind: int, params, q: Vec3) -> torch.Tensor:
+    """Signed distance of local point q for a primitive of `kind`, with
+    params[0..3] as in SDFDescription. Only the kind's own formula is
+    evaluated; the JAX function computes all three and selects, which
+    gives the same values."""
+    if kind == SDF_KIND_SPHERE:
+        return torch.sqrt(torch.clamp_min(mag2(q), 1e-20)) - params[0]
+    if kind == SDF_KIND_BOX:
+        ax = torch.abs(q.x) - params[0]
+        ay = torch.abs(q.y) - params[1]
+        az = torch.abs(q.z) - params[2]
+        mx, my, mz = (torch.clamp_min(a, 0.0) for a in (ax, ay, az))
+        outside = torch.sqrt(mx * mx + my * my + mz * mz)
+        inside = torch.clamp_max(torch.maximum(ax, torch.maximum(ay, az)), 0.0)
+        return outside + inside
+    if kind == SDF_KIND_TORUS:
+        ring = torch.sqrt(torch.clamp_min(q.x * q.x + q.z * q.z, 1e-20)) - params[0]
+        return torch.sqrt(torch.clamp_min(ring * ring + q.y * q.y, 1e-20)) - params[1]
+    raise ValueError(f"unknown SDF kind {kind}")
+
+
+def sdf_normal(kind: int, params, q: Vec3, h: torch.Tensor) -> Vec3:
+    """Surface normal by the 4-tap tetrahedron gradient estimate."""
+
+    def tap(sx, sy, sz):
+        return sdf_distance(
+            kind, params, Vec3(q.x + sx * h, q.y + sy * h, q.z + sz * h)
+        )
+
+    t0 = tap(1.0, -1.0, -1.0)
+    t1 = tap(-1.0, -1.0, 1.0)
+    t2 = tap(-1.0, 1.0, -1.0)
+    t3 = tap(1.0, 1.0, 1.0)
+    g = Vec3(t0 - t1 - t2 + t3, -t0 - t1 + t2 + t3, -t0 + t1 - t2 + t3)
+    return normalize(g)
+
+
+def _rot3(rot, v: Vec3) -> Vec3:
+    """Apply a row-major 3x3 rotation (anything doubly indexable)."""
+    return Vec3(
+        rot[0][0] * v.x + rot[0][1] * v.y + rot[0][2] * v.z,
+        rot[1][0] * v.x + rot[1][1] * v.y + rot[1][2] * v.z,
+        rot[2][0] * v.x + rot[2][1] * v.y + rot[2][2] * v.z,
+    )
+
+
+def _rot3_t(rot, v: Vec3) -> Vec3:
+    """Apply the transpose (inverse) of the rotation in _rot3."""
+    return Vec3(
+        rot[0][0] * v.x + rot[1][0] * v.y + rot[2][0] * v.z,
+        rot[0][1] * v.x + rot[1][1] * v.y + rot[2][1] * v.z,
+        rot[0][2] * v.x + rot[1][2] * v.y + rot[2][2] * v.z,
+    )
+
+
+def _sdf_frame(d: Vec3, kind: int, params, rot, scale):
+    """(degenerate flag, |d|, unit direction, to_local, world_dist) of rays
+    along d against one primitive: to_local maps a world offset from the
+    centre into the primitive's frame, world_dist gives its distance in
+    world units."""
+    deg = _degenerate(d)
+    dlen = torch.sqrt(torch.where(deg, 1.0, mag2(d)))
+    dn = Vec3(d.x / dlen, d.y / dlen, d.z / dlen)
+
+    def to_local(qw: Vec3) -> Vec3:
+        q = _rot3(rot, qw) if rot is not None else qw
+        if scale is not None:
+            inv = 1.0 / scale
+            q = Vec3(q.x * inv, q.y * inv, q.z * inv)
+        return q
+
+    def world_dist(qw: Vec3) -> torch.Tensor:
+        dist = sdf_distance(kind, params, to_local(qw))
+        return dist * scale if scale is not None else dist
+
+    return deg, dlen, dn, to_local, world_dist
+
+
+def _march(o: Vec3, dn: Vec3, center: Vec3, world_dist):
+    """The sphere trace along the unit direction dn: (t_world, each ray's
+    distance evaluations until it is done)."""
+    t = torch.zeros_like(o.x)
+    done = torch.zeros_like(o.x, dtype=torch.bool)
+    steps = torch.zeros_like(o.x, dtype=torch.int32)
+    for step in range(SPHERE_TRACE_STEPS):
+        if step % _DONE_CHECK == 0 and step and bool(done.all()):
+            break
+        steps += ~done
+        dist = world_dist(ray_at(o, dn, t) - center)
+        eps = SDF_EPS * torch.clamp_min(t, 1.0)
+        done = done | (torch.abs(dist) < eps) | (t > SDF_MAX_T)
+        t = torch.where(done, t, t + torch.maximum(dist, 0.5 * eps))
+    return t, steps
+
+
+def sdf_march_steps(o: Vec3, d: Vec3, kind: int, center: Vec3, params, rot=None,
+                    scale=None) -> torch.Tensor:
+    """Each ray's distance evaluations in `sdf_candidate`'s march: what a
+    per-ray march that stops when it is done evaluates (int32)."""
+    _deg, _dlen, dn, _to_local, world_dist = _sdf_frame(d, kind, params, rot, scale)
+    return _march(o, dn, center, world_dist)[1]
+
+
+def sdf_candidate(o: Vec3, d: Vec3, kind: int, center: Vec3, params, rot=None, scale=None,
+                  with_normal: bool = True):
+    """Sphere-trace one SDF primitive for a batch of rays.
+
+    Returns (t, p, n, valid) with t in the ray's own parameterization
+    (t_world / |d|, +inf on a miss) and p the point at t_world along the
+    normalized direction. `rot` is the world-to-local rotation (row-major
+    3x3) and `scale` the uniform object scale: distances are
+    s * d_local(R (p - c) / s), normals the local gradient rotated back.
+    with_normal=False skips the normal (n is None): the shadow ray needs
+    only t."""
+    deg, dlen, dn, to_local, world_dist = _sdf_frame(d, kind, params, rot, scale)
+    t, _steps = _march(o, dn, center, world_dist)
+
+    p = ray_at(o, dn, t)
+    eps = SDF_EPS * torch.clamp_min(t, 1.0)
+    valid = (
+        ~deg
+        & (torch.abs(world_dist(p - center)) < eps)
+        & (t > torch.clamp_min(min_hit_t(o), SDF_MIN_T))
+        & (t <= SDF_MAX_T)
+    )
+    n = None
+    if with_normal:
+        h_local = eps / scale if scale is not None else eps
+        n = sdf_normal(kind, params, to_local(p - center), h_local)
+        n = _rot3_t(rot, n) if rot is not None else n
+    return torch.where(valid, t / dlen, INF), p, n, valid

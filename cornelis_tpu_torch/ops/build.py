@@ -29,12 +29,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-# Flags of one library beyond NVCC_FLAGS. The NEE instantiations round every
-# product and sum on its own, as the plain torch version does (the reason
-# is in csrc/megakernel.cu).
-EXTRA_FLAGS = {"megakernel_nee": ("-fmad=false",)}
+# Flags of one library beyond NVCC_FLAGS. The NEE instantiations and the
+# probes round every product and sum on its own, as their plain torch
+# versions do (the reasons are in csrc/megakernel.cu and csrc/probes.cu).
+EXTRA_FLAGS = {"megakernel_nee": ("-fmad=false",), "probes": ("-fmad=false",)}
 # The libraries the port's kernels live in, in csrc/<name>.cu.
-LIBRARIES = ("megakernel", "megakernel_nee", "lights")
+LIBRARIES = ("megakernel", "megakernel_nee", "lights", "warm", "probes")
 
 # nvcc's output (the ptxas register and spill report) of the builds made
 # by this process, by source name.

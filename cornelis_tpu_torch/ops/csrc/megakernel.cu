@@ -2,11 +2,13 @@
 // per thread, from the camera jitter to the last bounce.
 //
 // Replaces cornelis_tpu/ops/pallas_integrator.py::_make_kernel (launched
-// there by _build_renderer through pl.pallas_call) on spheres and planes,
-// in modes "path" and "nee" with samplers "uniform" and "sobol", and the
-// bounce loop of cornelis_tpu/ops/pallas_dynamic.py::_make_kernel_dyn,
-// which differs only in its light table (ops/lights.py builds both). Mode
-// and sampler are template parameters: four instantiations of one kernel.
+// there by _build_renderer through pl.pallas_call) on spheres, planes and
+// SDF primitives, in modes "path" and "nee" with samplers "uniform" and
+// "sobol", and the bounce loop of
+// cornelis_tpu/ops/pallas_dynamic.py::_make_kernel_dyn, which differs only
+// in its light table (ops/lights.py builds both). Mode, sampler and SDF
+// support are template parameters; the SDF instantiations are launched only
+// for tables with SDF rows, so the sphere-and-plane ones compile as before.
 // This file instantiates mode "path" (entry point cornelis_megakernel);
 // megakernel_nee.cu includes it with CORNELIS_MEGAKERNEL_NEE defined and
 // instantiates mode "nee" (cornelis_megakernel_nee), compiled without FMA
@@ -48,6 +50,23 @@
 // or sample arrays (the TPU needed them because its gathers were slow),
 // and consecutive threads on the samples of one pixel, so a warp starts
 // coherent. Path regeneration, table placement and a BVH are later work.
+//
+// SDFs (K1's _intersect_const:495-502 and _occluded_const:530-534, which
+// call geometry.py::sdf_candidate): every SDF is sphere-traced for up to
+// SPHERE_TRACE_STEPS steps after the planes, in the closest-hit scan and in
+// the shadow ray. FP32 issue bounds it: a step costs about 50 operations
+// (point on the ray, rotation into the object frame, the kind's distance,
+// the convergence test), so a ray that grazes an object and marches all
+// 128 steps costs more than the rest of its bounce. The design: each thread
+// leaves its own march when it converges or escapes (the TPU froze done
+// lanes and ran all 128 steps), the kind is uniform across a warp (every
+// thread scans the same SDF), so the distance is a switch and not all three
+// formulas, the primitive's 17 floats are loaded once per scan, and the
+// normal (four more distance evaluations) is taken only for a hit that is
+// closer than the best so far. The SDF arithmetic rounds every operation
+// on its own (__fmul_rn, __fadd_rn, __fsqrt_rn, __fdiv_rn), whatever -fmad
+// says: the tetrahedron normal differences distances about 1e-4 apart, so
+// it amplifies a contracted ulp of the march by about 1e3.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -308,6 +327,151 @@ __device__ __forceinline__ float plane_t(const float* __restrict__ pl, V3 o, V3 
   return valid ? t : INFINITY;
 }
 
+// ---- geometry.py: SDF primitives ------------------------------------------
+
+constexpr int SDF_COLS = 19;  // scene/compile.py: kind, c xyz, p0..p3, material, R (9), scale
+constexpr int SDF_KIND_SPHERE = 0, SDF_KIND_BOX = 1;
+constexpr int SPHERE_TRACE_STEPS = 128;
+constexpr float SDF_EPS = (float)1e-4;
+constexpr float SDF_MIN_T = (float)1e-3;
+constexpr float SDF_MAX_T = (float)1e6;
+constexpr float FLOOR_20 = (float)1e-20;
+
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float mag2_rn(V3 a) {
+  return add_rn(add_rn(mul_rn(a.x, a.x), mul_rn(a.y, a.y)), mul_rn(a.z, a.z));
+}
+__device__ __forceinline__ V3 sub_rn(V3 a, V3 b) {
+  return v3(sub_rn(a.x, b.x), sub_rn(a.y, b.y), sub_rn(a.z, b.z));
+}
+// o + d * t, each operation rounded.
+__device__ __forceinline__ V3 ray_at_rn(V3 o, V3 d, float t) {
+  return v3(add_rn(o.x, mul_rn(d.x, t)), add_rn(o.y, mul_rn(d.y, t)), add_rn(o.z, mul_rn(d.z, t)));
+}
+// Row i of a row-major 3x3 times v: (r0 x + r1 y) + r2 z.
+__device__ __forceinline__ float row3_rn(float r0, float r1, float r2, V3 v) {
+  return add_rn(add_rn(mul_rn(r0, v.x), mul_rn(r1, v.y)), mul_rn(r2, v.z));
+}
+
+// One SDF row, loaded once per scan.
+struct Sdf {
+  int kind;
+  V3 c;
+  float p0, p1, p2;
+  float r[9];  // world-to-local rotation, row-major
+  float scale, inv_scale;
+};
+
+__device__ __forceinline__ Sdf load_sdf(const float* __restrict__ sd) {
+  Sdf f;
+  f.kind = (int)__ldg(sd);
+  f.c = v3(__ldg(sd + 1), __ldg(sd + 2), __ldg(sd + 3));
+  f.p0 = __ldg(sd + 4);
+  f.p1 = __ldg(sd + 5);
+  f.p2 = __ldg(sd + 6);
+#pragma unroll
+  for (int i = 0; i < 9; ++i) f.r[i] = __ldg(sd + 9 + i);
+  f.scale = __ldg(sd + 18);
+  f.inv_scale = __fdiv_rn(1.0f, f.scale);
+  return f;
+}
+
+// geometry.py::sdf_distance of local point q, the kind's formula only.
+__device__ __forceinline__ float sdf_distance(const Sdf& f, V3 q) {
+  if (f.kind == SDF_KIND_SPHERE) {
+    return sub_rn(__fsqrt_rn(jmax(mag2_rn(q), FLOOR_20)), f.p0);
+  }
+  if (f.kind == SDF_KIND_BOX) {
+    const float ax = sub_rn(fabsf(q.x), f.p0);
+    const float ay = sub_rn(fabsf(q.y), f.p1);
+    const float az = sub_rn(fabsf(q.z), f.p2);
+    const float mx = jmax(ax, 0.0f), my = jmax(ay, 0.0f), mz = jmax(az, 0.0f);
+    const float outside = __fsqrt_rn(add_rn(add_rn(mul_rn(mx, mx), mul_rn(my, my)), mul_rn(mz, mz)));
+    const float inside = jmin(jmax(ax, jmax(ay, az)), 0.0f);
+    return add_rn(outside, inside);
+  }
+  // torus about the local y axis
+  const float ring = sub_rn(__fsqrt_rn(jmax(add_rn(mul_rn(q.x, q.x), mul_rn(q.z, q.z)), FLOOR_20)), f.p0);
+  return sub_rn(__fsqrt_rn(jmax(add_rn(mul_rn(ring, ring), mul_rn(q.y, q.y)), FLOOR_20)), f.p1);
+}
+
+// World point relative to the center -> object frame: R w, then * (1 / s).
+__device__ __forceinline__ V3 sdf_to_local(const Sdf& f, V3 w) {
+  return v3(mul_rn(row3_rn(f.r[0], f.r[1], f.r[2], w), f.inv_scale),
+            mul_rn(row3_rn(f.r[3], f.r[4], f.r[5], w), f.inv_scale),
+            mul_rn(row3_rn(f.r[6], f.r[7], f.r[8], w), f.inv_scale));
+}
+
+__device__ __forceinline__ float sdf_world_dist(const Sdf& f, V3 p) {
+  return mul_rn(sdf_distance(f, sdf_to_local(f, sub_rn(p, f.c))), f.scale);
+}
+
+__device__ __forceinline__ float sdf_eps(float t) { return mul_rn(SDF_EPS, jmax(1.0f, t)); }
+
+// Per-ray quantities of the SDF march, hoisted out of the object loop.
+struct SdfRay {
+  V3 dn;      // d / |d|
+  float dlen;  // |d| (1 for a degenerate d)
+  float lim;   // max(SDF_MIN_T, min_hit_t(o)) in world units
+  bool deg;
+};
+
+__device__ __forceinline__ SdfRay sdf_ray(V3 o, V3 d) {
+  SdfRay r;
+  r.deg = degenerate(d);
+  r.dlen = __fsqrt_rn(r.deg ? 1.0f : mag2_rn(d));
+  r.dn = v3(__fdiv_rn(d.x, r.dlen), __fdiv_rn(d.y, r.dlen), __fdiv_rn(d.z, r.dlen));
+  const float mag = jmax(jmax(fabsf(o.x), fabsf(o.y)), fabsf(o.z));
+  r.lim = jmax(SDF_MIN_T, mul_rn(T_MIN_SCALE, add_rn(1.0f, mag)));
+  return r;
+}
+
+// geometry.py::sdf_candidate's march: the world-unit t at which the march
+// stops, and whether it is a hit. A thread leaves at convergence or
+// escape; the TPU's frozen lanes kept exactly this t.
+__device__ __forceinline__ float sdf_march(const Sdf& f, V3 o, const SdfRay& r, bool& valid) {
+  float t = 0.0f;
+  bool hit = false;
+  int i = 0;
+  for (; i < SPHERE_TRACE_STEPS; ++i) {
+    const float dist = sdf_world_dist(f, ray_at_rn(o, r.dn, t));
+    const float eps = sdf_eps(t);
+    if (fabsf(dist) < eps) {
+      hit = true;
+      break;
+    }
+    if (t > SDF_MAX_T) break;
+    t = add_rn(t, jmax(dist, mul_rn(0.5f, eps)));
+  }
+  if (i == SPHERE_TRACE_STEPS) hit = fabsf(sdf_world_dist(f, ray_at_rn(o, r.dn, t))) < sdf_eps(t);
+  valid = hit && !r.deg && t > r.lim && t <= SDF_MAX_T;
+  return t;
+}
+
+// geometry.py::sdf_normal at the world point p, the march stopped at t:
+// the 4-tap tetrahedron gradient in the object frame (spacing eps / s),
+// normalized, rotated back to world.
+__device__ V3 sdf_normal(const Sdf& f, V3 p, float t) {
+  const float h = __fdiv_rn(sdf_eps(t), f.scale);
+  const V3 q = sdf_to_local(f, sub_rn(p, f.c));
+  const float t0 = sdf_distance(f, v3(add_rn(q.x, h), sub_rn(q.y, h), sub_rn(q.z, h)));
+  const float t1 = sdf_distance(f, v3(sub_rn(q.x, h), sub_rn(q.y, h), add_rn(q.z, h)));
+  const float t2 = sdf_distance(f, v3(sub_rn(q.x, h), add_rn(q.y, h), sub_rn(q.z, h)));
+  const float t3 = sdf_distance(f, v3(add_rn(q.x, h), add_rn(q.y, h), add_rn(q.z, h)));
+  V3 g = v3(add_rn(sub_rn(sub_rn(t0, t1), t2), t3), add_rn(add_rn(sub_rn(-t0, t1), t2), t3),
+            add_rn(sub_rn(add_rn(-t0, t1), t2), t3));
+  // math/vec.py normalize, rounded as torch rounds it.
+  const float m2 = mag2_rn(g);
+  const bool zero = m2 < RAY_EPSILON2;
+  const float s = zero ? 0.0f : __fdiv_rn(1.0f, __fsqrt_rn(zero ? 1.0f : m2));
+  g = v3(mul_rn(g.x, s), mul_rn(g.y, s), mul_rn(g.z, s));
+  // R^T g
+  return v3(row3_rn(f.r[0], f.r[3], f.r[6], g), row3_rn(f.r[1], f.r[4], f.r[7], g),
+            row3_rn(f.r[2], f.r[5], f.r[8], g));
+}
+
 struct Hit {
   float t;
   V3 p, n;
@@ -317,11 +481,13 @@ struct Hit {
 };
 
 // pallas_integrator.py::_intersect_const over table operands: a t-only
-// sphere scan, one fetch of the winning sphere, then the planes. Updates
-// are on a strict best_t > t, so the first object wins a tie and a sphere
-// wins a tie against a plane.
+// sphere scan, one fetch of the winning sphere, the planes, then (SDF) the
+// SDF marches. Updates are on a strict best_t > t, so the first object wins
+// a tie, a sphere wins a tie against a plane and a plane against an SDF.
+template <bool SDF>
 __device__ Hit intersect(const float* __restrict__ spheres, int n_spheres,
-                         const float* __restrict__ planes, int n_planes, V3 o, V3 d) {
+                         const float* __restrict__ planes, int n_planes,
+                         const float* __restrict__ sdfs, int n_sdfs, V3 o, V3 d) {
   const RayPre pre = ray_pre(o, d);
 
   float s_best_t = INFINITY;
@@ -362,13 +528,33 @@ __device__ Hit intersect(const float* __restrict__ spheres, int n_spheres,
       h.prim = n_spheres + j;
     }
   }
+
+  if constexpr (SDF) {
+    const SdfRay r = sdf_ray(o, d);
+    for (int k = 0; k < n_sdfs; ++k) {
+      const float* sd = sdfs + SDF_COLS * k;
+      const Sdf f = load_sdf(sd);
+      bool valid;
+      const float tw = sdf_march(f, o, r, valid);
+      const float t = valid ? __fdiv_rn(tw, r.dlen) : INFINITY;
+      if (h.t > t) {
+        h.t = t;
+        h.hit = true;
+        h.p = ray_at_rn(o, r.dn, tw);
+        h.n = sdf_normal(f, h.p, tw);
+        h.mid = (int)__ldg(sd + 8);
+        h.prim = -1;  // not light-sampled: MIS weight 1
+      }
+    }
+  }
   return h;
 }
 
 // pallas_integrator.py::_occluded_const: any hit closer than t_max.
+template <bool SDF>
 __device__ bool occluded(const float* __restrict__ spheres, int n_spheres,
-                         const float* __restrict__ planes, int n_planes, V3 o, V3 d,
-                         float t_max) {
+                         const float* __restrict__ planes, int n_planes,
+                         const float* __restrict__ sdfs, int n_sdfs, V3 o, V3 d, float t_max) {
   const RayPre pre = ray_pre(o, d);
   for (int s = 0; s < n_spheres; ++s) {
     if (sphere_t(spheres + 5 * s, o, d, pre) < t_max) return true;
@@ -376,6 +562,14 @@ __device__ bool occluded(const float* __restrict__ spheres, int n_spheres,
   for (int j = 0; j < n_planes; ++j) {
     V3 p, normal;
     if (plane_t(planes + 9 * j, o, d, pre, p, normal) < t_max) return true;
+  }
+  if constexpr (SDF) {
+    const SdfRay r = sdf_ray(o, d);
+    for (int k = 0; k < n_sdfs; ++k) {
+      bool valid;
+      const float tw = sdf_march(load_sdf(sdfs + SDF_COLS * k), o, r, valid);
+      if (valid && __fdiv_rn(tw, r.dlen) < t_max) return true;
+    }
   }
   return false;
 }
@@ -614,18 +808,19 @@ __device__ LightSample sample_light(const float* __restrict__ lights, int n_ligh
 
 // ---- the kernel -----------------------------------------------------------
 
-// NEE: mode "nee" (else "path"); SOBOL: sampler "sobol" (else "uniform").
+// NEE: mode "nee" (else "path"); SOBOL: sampler "sobol" (else "uniform");
+// SDF: scan the n_sdfs rows of `sdfs` (else they are not read).
 // `lights` (n_lights rows) and `clamp` (the clamp base) are read in mode
 // "nee" only; n_lights = 0 means nothing emits: no light is sampled, and
 // emission is neither MIS-weighted nor clamped.
-template <bool NEE, bool SOBOL>
+template <bool NEE, bool SOBOL, bool SDF>
 __global__ void __launch_bounds__(BLOCK)
 megakernel(const float* __restrict__ camera, const float* __restrict__ spheres, int n_spheres,
            const float* __restrict__ planes, int n_planes, const float* __restrict__ materials,
            float* __restrict__ out, long long n_rays, uint32_t k0, uint32_t k1, uint32_t root,
            int width, float inv_width, float inv_height, int spp_chunk, uint32_t sample_offset,
            int max_depth, int index_bits, const float* __restrict__ lights, int n_lights,
-           const float* __restrict__ clamp) {
+           const float* __restrict__ clamp, const float* __restrict__ sdfs, int n_sdfs) {
   const long long k = (long long)blockIdx.x * BLOCK + threadIdx.x;
   if (k >= n_rays) return;
   // Ray k is (pixel k / spp, sample offset + k % spp).
@@ -659,7 +854,7 @@ megakernel(const float* __restrict__ camera, const float* __restrict__ spheres, 
   V3 rad = v3(0.0f, 0.0f, 0.0f);
   float prev_pdf = 1.0f;  // the previous vertex's true BSDF density (MIS)
   for (int depth = 0; depth < max_depth; ++depth) {
-    const Hit h = intersect(spheres, n_spheres, planes, n_planes, o, d);
+    const Hit h = intersect<SDF>(spheres, n_spheres, planes, n_planes, sdfs, n_sdfs, o, d);
     if (!h.hit) break;  // a miss ends the path: nothing further is added
     const Material mp = load_material(materials, h.mid);
     V3 contrib = tput * mp.emission;
@@ -690,8 +885,8 @@ megakernel(const float* __restrict__ camera, const float* __restrict__ spheres, 
       // The light's contribution before the RR decision, as in the JAX
       // kernel; the shadow ray only where it can be non-zero.
       if (ls.valid && cos_surf > 0.0f &&
-          !occluded(spheres, n_spheres, planes, n_planes, h.p + ls.wi * BOUNCE_EPSILON, ls.wi,
-                    ls.t * SHADOW_SCALE)) {
+          !occluded<SDF>(spheres, n_spheres, planes, n_planes, sdfs, n_sdfs,
+                         h.p + ls.wi * BOUNCE_EPSILON, ls.wi, ls.t * SHADOW_SCALE)) {
         const V3 f_l = layered_eval(ls.wi, wo, h.n, mp);
         const float p_bsdf = layered_pdf_true(ls.wi, wo, h.n, mp);
         const float mis = ls.pdf / jmax(ls.pdf + p_bsdf, FLOOR_12);
@@ -724,18 +919,43 @@ megakernel(const float* __restrict__ camera, const float* __restrict__ spheres, 
   out[3 * k + 2] = rad.z;
 }
 
-template <bool NEE, bool SOBOL>
+template <bool NEE, bool SOBOL, bool SDF>
 int launch(const float* camera, const float* spheres, int n_spheres, const float* planes,
-           int n_planes, const float* materials, float* out, long long n_rays, uint32_t k0,
-           uint32_t k1, uint32_t root, int width, float inv_width, float inv_height,
-           int spp_chunk, uint32_t sample_offset, int max_depth, int index_bits,
+           int n_planes, const float* materials, const float* sdfs, int n_sdfs, float* out,
+           long long n_rays, uint32_t k0, uint32_t k1, uint32_t root, int width, float inv_width,
+           float inv_height, int spp_chunk, uint32_t sample_offset, int max_depth, int index_bits,
            const float* lights, int n_lights, const float* clamp, cudaStream_t stream) {
   const long long blocks = (n_rays + BLOCK - 1) / BLOCK;
-  megakernel<NEE, SOBOL><<<(unsigned int)blocks, BLOCK, 0, stream>>>(
+  megakernel<NEE, SOBOL, SDF><<<(unsigned int)blocks, BLOCK, 0, stream>>>(
       camera, spheres, n_spheres, planes, n_planes, materials, out, n_rays, k0, k1, root, width,
       inv_width, inv_height, spp_chunk, sample_offset, max_depth, index_bits, lights, n_lights,
-      clamp);
+      clamp, sdfs, n_sdfs);
   return (int)cudaGetLastError();
+}
+
+template <bool NEE>
+using LaunchFn = decltype(&launch<NEE, false, false>);
+
+// The instantiation for (sobol, SDF rows present).
+template <bool NEE>
+LaunchFn<NEE> pick(int sobol, int n_sdfs) {
+  if (n_sdfs > 0) return sobol ? launch<NEE, true, true> : launch<NEE, false, true>;
+  return sobol ? launch<NEE, true, false> : launch<NEE, false, false>;
+}
+
+// Every instantiation of this library, for cornelis_megakernel*_load.
+template <bool NEE>
+int load_all() {
+  const void* fns[4] = {(const void*)megakernel<NEE, false, false>,
+                        (const void*)megakernel<NEE, true, false>,
+                        (const void*)megakernel<NEE, false, true>,
+                        (const void*)megakernel<NEE, true, true>};
+  for (const void* fn : fns) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -743,20 +963,25 @@ int launch(const float* camera, const float* spheres, int n_spheres, const float
 #ifndef CORNELIS_MEGAKERNEL_NEE
 
 // Launches one thread per ray in mode "path" on `stream` and returns
-// cudaGetLastError(). sobol (0 or 1) chooses the instantiation; index_bits
-// is clamped to [1, 32].
+// cudaGetLastError(). sobol (0 or 1) and n_sdfs > 0 choose the
+// instantiation; index_bits is clamped to [1, 32].
 extern "C" int cornelis_megakernel(const float* camera, const float* spheres, int n_spheres,
                                    const float* planes, int n_planes, const float* materials,
-                                   float* out, long long n_rays, uint32_t k0, uint32_t k1,
-                                   uint32_t root, int width, float inv_width, float inv_height,
-                                   int spp_chunk, uint32_t sample_offset, int max_depth, int sobol,
+                                   const float* sdfs, int n_sdfs, float* out, long long n_rays,
+                                   uint32_t k0, uint32_t k1, uint32_t root, int width,
+                                   float inv_width, float inv_height, int spp_chunk,
+                                   uint32_t sample_offset, int max_depth, int sobol,
                                    int index_bits, void* stream) {
   index_bits = index_bits < 1 ? 1 : (index_bits > 32 ? 32 : index_bits);
-  auto* fn = sobol ? launch<false, true> : launch<false, false>;
-  return fn(camera, spheres, n_spheres, planes, n_planes, materials, out, n_rays, k0, k1, root,
-            width, inv_width, inv_height, spp_chunk, sample_offset, max_depth, index_bits, nullptr,
-            0, nullptr, (cudaStream_t)stream);
+  return pick<false>(sobol, n_sdfs)(camera, spheres, n_spheres, planes, n_planes, materials, sdfs,
+                                    n_sdfs, out, n_rays, k0, k1, root, width, inv_width,
+                                    inv_height, spp_chunk, sample_offset, max_depth, index_bits,
+                                    nullptr, 0, nullptr, (cudaStream_t)stream);
 }
+
+// Loads this library's four kernels onto the current device (CUDA loads a
+// module's kernels lazily, at first use) and returns the first error.
+extern "C" int cornelis_megakernel_load() { return load_all<false>(); }
 
 #else
 
@@ -764,17 +989,19 @@ extern "C" int cornelis_megakernel(const float* camera, const float* spheres, in
 // (n_lights rows of ops/lights.py's layout) and the clamp base.
 extern "C" int cornelis_megakernel_nee(const float* camera, const float* spheres, int n_spheres,
                                        const float* planes, int n_planes, const float* materials,
-                                       float* out, long long n_rays, uint32_t k0, uint32_t k1,
-                                       uint32_t root, int width, float inv_width,
-                                       float inv_height, int spp_chunk, uint32_t sample_offset,
-                                       int max_depth, int sobol, int index_bits,
-                                       const float* lights, int n_lights, const float* clamp,
-                                       void* stream) {
+                                       const float* sdfs, int n_sdfs, float* out,
+                                       long long n_rays, uint32_t k0, uint32_t k1, uint32_t root,
+                                       int width, float inv_width, float inv_height,
+                                       int spp_chunk, uint32_t sample_offset, int max_depth,
+                                       int sobol, int index_bits, const float* lights,
+                                       int n_lights, const float* clamp, void* stream) {
   index_bits = index_bits < 1 ? 1 : (index_bits > 32 ? 32 : index_bits);
-  auto* fn = sobol ? launch<true, true> : launch<true, false>;
-  return fn(camera, spheres, n_spheres, planes, n_planes, materials, out, n_rays, k0, k1, root,
-            width, inv_width, inv_height, spp_chunk, sample_offset, max_depth, index_bits, lights,
-            n_lights, clamp, (cudaStream_t)stream);
+  return pick<true>(sobol, n_sdfs)(camera, spheres, n_spheres, planes, n_planes, materials, sdfs,
+                                   n_sdfs, out, n_rays, k0, k1, root, width, inv_width,
+                                   inv_height, spp_chunk, sample_offset, max_depth, index_bits,
+                                   lights, n_lights, clamp, (cudaStream_t)stream);
 }
+
+extern "C" int cornelis_megakernel_nee_load() { return load_all<true>(); }
 
 #endif

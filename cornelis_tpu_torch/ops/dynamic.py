@@ -11,8 +11,9 @@ device: every sphere and plane a row, in float32. An edit of the tables in
 place (a new emission, a moved sphere) re-renders with no rebuild and no
 host round trip.
 
-The tables hold spheres and planes only; a scene with SDFs cannot be
-compiled into them (`compile_scene` raises NotImplementedError).
+Like the JAX function (pallas_dynamic.py:591-595), it takes no SDFs:
+tables with SDF rows raise NotImplementedError. Render such scenes with
+`render_chunk` (K1's SDF instantiations).
 """
 
 from __future__ import annotations
@@ -40,7 +41,12 @@ def render_chunk_dynamic(
     """(H, W, 3) radiance sums over one chunk of samples per pixel. In mode
     "nee" the light table and clamp base come from the tables on their own
     device (K3 takes no clamp override); a scene with no sphere and no
-    plane then raises ValueError."""
+    plane then raises ValueError, and one with SDFs NotImplementedError."""
+    if tables.sdfs.shape[0]:
+        raise NotImplementedError(
+            "the dynamic-scene render takes no SDF primitives (as "
+            "cornelis_tpu's render_chunk_pallas_dynamic); use render_chunk"
+        )
     return render_chunk(
         tables, key, sample_offset, width=width, height=height, spp_chunk=spp_chunk,
         spp_total=spp_total, max_depth=max_depth, sampler=sampler, mode=mode,

@@ -27,6 +27,9 @@ for a plane. K1 folds those three in float64 (pallas_integrator.py:694,
 701, 707); K3 multiplies in float32 (pallas_dynamic.py:257, 264, 268).
 
 Both weight a sphere by 4 pi r^2 with math.pi, not the reference's PI.
+Neither has a row for an SDF: an SDF emitter is reached by BSDF sampling
+alone (its MIS weight is 1), as in the JAX kernels; the clamp base takes
+the brightest emission over every material, an SDF's included.
 """
 
 from __future__ import annotations

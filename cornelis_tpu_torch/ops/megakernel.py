@@ -1,7 +1,8 @@
 """The path-tracing megakernel: CUDA wrapper, plain torch version, chunks.
 
-Counterpart of `cornelis_tpu/ops/pallas_integrator.py` on spheres and
-planes, in modes "path" and "nee" with samplers "uniform" and "sobol".
+Counterpart of `cornelis_tpu/ops/pallas_integrator.py` on spheres, planes
+and SDF primitives, in modes "path" and "nee" with samplers "uniform" and
+"sobol".
 `render_rays` launches the hand-written CUDA kernel
 (ops/csrc/megakernel.cu) for tables on a CUDA device, and runs
 `render_rays_reference` for tables on the CPU. The reference is a masked
@@ -27,7 +28,13 @@ from typing import Optional
 import torch
 
 from ..camera import camera_from_row, generate_rays
-from ..geometry import _degenerate, min_hit_t, plane_candidate, sphere_candidate_t
+from ..geometry import (
+    _degenerate,
+    min_hit_t,
+    plane_candidate,
+    sdf_candidate,
+    sphere_candidate_t,
+)
 from ..integrator import BOUNCE_EPSILON, nee_clamp_at_depth, russian_roulette_probability
 from ..materials import gather_materials, layered_eval, layered_pdf_true, layered_sample
 from ..math.vec import (
@@ -42,13 +49,15 @@ from ..math.vec import (
     where,
 )
 from ..sampling import hash32, sobol_pair
-from ..scene.compile import SceneTables
+from ..scene.compile import SDF_COLS, SceneTables
 from . import lights as L
 from .threefry import pair_uniforms
 
-# Kernel launches made by `render_rays` in this process. chip_smoke.py
-# zeroes it before driving the main path and reads it after.
+# Kernel launches made by `render_rays` in this process, and those of them
+# through an SDF instantiation. chip_smoke.py zeroes both before driving a
+# main path and reads them after.
 LAUNCHES = 0
+SDF_LAUNCHES = 0
 
 SAMPLERS = ("uniform", "sobol")
 MODES = ("path", "nee")
@@ -60,11 +69,21 @@ def index_bits_for(spp_total: int) -> int:
     return max(1, (spp_total - 1).bit_length())
 
 
+def _sdf_rows(tables: SceneTables):
+    """Per SDF row: (kind, center, params, material, rot, scale) with the
+    kind an int and the rest 0-dim float32 tensors."""
+    for row in tables.sdfs:
+        yield (int(row[0]), Vec3(row[1], row[2], row[3]), row[4:8], row[8],
+               row[9:18].view(3, 3), row[18])
+
+
 def intersect(tables: SceneTables, o: Vec3, d: Vec3):
     """Closest hit against the tables (`_intersect_const`): a t-only sphere
-    scan, one fetch of the winning sphere, then the finite planes; strict
-    best_t > t updates. Returns (t, p, n, material id, prim, hit), where
-    prim is the unified index: sphere i -> i, plane j -> S + j, miss -> -1."""
+    scan, one fetch of the winning sphere, the finite planes, then every
+    SDF sphere-traced; strict best_t > t updates. Returns (t, p, n,
+    material id, prim, hit), where prim is the unified index: sphere i ->
+    i, plane j -> S + j, SDF or miss -> -1 (SDF emitters are not light
+    sampled, so their MIS weight is 1)."""
     tmin = min_hit_t(o, d)
     deg = _degenerate(d)
     a = torch.where(deg, 1.0, mag2(d))
@@ -113,12 +132,21 @@ def intersect(tables: SceneTables, o: Vec3, d: Vec3):
         n = Vec3(*(torch.where(closer, c, nc) for c, nc in zip(normal, n)))
         mid = torch.where(closer, row[8].to(torch.int64), mid)
         prim = torch.where(closer, n_sph + j, prim)
+    for kind, center, params, smid, rot, scale in _sdf_rows(tables):
+        t, pp, nn, valid = sdf_candidate(o, d, kind, center, params, rot=rot, scale=scale)
+        closer = valid & (best_t > t)
+        best_t = torch.where(closer, t, best_t)
+        hit = hit | closer
+        p = where(closer, pp, p)
+        n = where(closer, nn, n)
+        mid = torch.where(closer, smid.to(torch.int64), mid)
+        prim = torch.where(closer, -1, prim)
     return best_t, p, n, mid, prim, hit
 
 
 def occluded(tables: SceneTables, o: Vec3, d: Vec3, t_max: torch.Tensor) -> torch.Tensor:
     """Any hit closer than t_max (`_occluded_const`): the t-only sphere
-    scan, then the planes."""
+    scan, the planes, then the SDFs."""
     tmin = min_hit_t(o, d)
     deg = _degenerate(d)
     a = torch.where(deg, 1.0, mag2(d))
@@ -132,6 +160,11 @@ def occluded(tables: SceneTables, o: Vec3, d: Vec3, t_max: torch.Tensor) -> torc
         t, _p, _n, valid = plane_candidate(
             o, d, Vec3(row[0], row[1], row[2]), Vec3(row[3], row[4], row[5]),
             row[6], row[7], tmin=tmin,
+        )
+        occ = occ | (valid & (t < t_max))
+    for kind, center, params, _mid, rot, scale in _sdf_rows(tables):
+        t, _p, _n, valid = sdf_candidate(
+            o, d, kind, center, params, rot=rot, scale=scale, with_normal=False
         )
         occ = occ | (valid & (t < t_max))
     return occ
@@ -367,6 +400,7 @@ def _kernel_fn(nee: bool):
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     fn.argtypes = [
         p, p, i, p, i, p,  # camera, spheres, n_spheres, planes, n_planes, materials
+        p, i,  # sdfs, n_sdfs
         p, ctypes.c_longlong,  # out, n_rays
         u, u, u,  # k0, k1, root
         i, ctypes.c_float, ctypes.c_float,  # width, inv_width, inv_height
@@ -380,7 +414,7 @@ def _kernel_fn(nee: bool):
 
 
 def check_tables(tables: SceneTables) -> None:
-    widths = {"camera": None, "spheres": 5, "planes": 9, "materials": 11}
+    widths = {"camera": None, "spheres": 5, "planes": 9, "materials": 11, "sdfs": SDF_COLS}
     device = tables.camera.device
     for name, t in zip(SceneTables._fields, tables):
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != device:
@@ -427,8 +461,10 @@ def render_rays(
     lights: Optional[L.Lights] = None,
 ) -> torch.Tensor:
     """(n_rays, 3) radiance on the tables' device: the CUDA kernel on a CUDA
-    device, the plain version on the CPU. A failed launch raises."""
-    global LAUNCHES
+    device, the plain version on the CPU. A failed launch raises. Tables
+    with SDF rows launch the SDF instantiation (`SDF_LAUNCHES` counts
+    those launches too)."""
+    global LAUNCHES, SDF_LAUNCHES
     check_tables(tables)
     _check_variant(sampler, mode, lights)
     device = tables.camera.device
@@ -454,6 +490,8 @@ def render_rays(
             tables.planes.data_ptr(),
             tables.planes.shape[0],
             tables.materials.data_ptr(),
+            tables.sdfs.data_ptr(),
+            tables.sdfs.shape[0],
             out.data_ptr(),
             n_rays,
             k0,
@@ -473,6 +511,7 @@ def render_rays(
     if err != 0:
         raise RuntimeError(f"megakernel launch failed with CUDA error {err}")
     LAUNCHES += 1
+    SDF_LAUNCHES += int(tables.sdfs.shape[0] > 0)
     return out
 
 

@@ -8,8 +8,10 @@ same column layout, as four float32 tensors on one device.
   spheres    (S, 5)   cx, cy, cz, radius, material
   planes     (P, 9)   nx, ny, nz, px, py, pz, width, height, material
   materials  (M, 11)  albedo rgb, emission rgb, tint rgb, roughness, ior
+  sdfs       (K, 19)  kind, cx, cy, cz, p0..p3, material, the world-to-local
+                      rotation R^T (9, row-major), uniform scale
 
-Material ids are stored as floats. The kernel takes the tables as
+Material ids and SDF kinds (geometry.SDF_KIND_*) are stored as floats. The kernel takes the tables as
 operands, so one build serves every scene (the TPU baked them in as
 literals; that was a Mosaic constraint, not a property of the renderer).
 """
@@ -22,7 +24,9 @@ import numpy as np
 import torch
 
 from ..camera import look_at_host
-from .description import SceneDescription
+from .description import SDF_KINDS, SceneDescription
+
+SDF_COLS = 19
 
 
 class SceneTables(NamedTuple):
@@ -30,6 +34,7 @@ class SceneTables(NamedTuple):
     spheres: torch.Tensor
     planes: torch.Tensor
     materials: torch.Tensor
+    sdfs: torch.Tensor
 
     def to(self, device) -> "SceneTables":
         return SceneTables(*(t.to(device) for t in self))
@@ -77,15 +82,10 @@ def compile_scene(descr: SceneDescription, device="cpu") -> SceneTables:
     Objects with material=None use index 0, the default material the
     builder always installs (Scene.cpp:16,36). The kernel reads material
     rows by id without a bounds check, so ids are checked here."""
-    if descr.sdfs:
-        raise NotImplementedError(
-            "SDF primitives are not ported yet; render this scene with "
-            "cornelis_tpu"
-        )
     mats = descr.materials
     if not mats:
         raise ValueError("Scene must have at least the default material at index 0.")
-    for obj in list(descr.spheres) + list(descr.planes):
+    for obj in list(descr.spheres) + list(descr.planes) + list(descr.sdfs):
         mid = _material_id(obj)
         if not 0 <= mid < len(mats):
             raise ValueError(f"material id {mid} out of range (0..{len(mats) - 1})")
@@ -113,6 +113,19 @@ def compile_scene(descr: SceneDescription, device="cpu") -> SceneTables:
             + (s * pl.extents[0], s * pl.extents[1], _material_id(pl))
         )
 
+    sdfs = []
+    for sd in descr.sdfs:
+        r, t, s = _trs(sd)
+        params = tuple(sd.params) + (0.0,) * (4 - len(sd.params))
+        sdfs.append(
+            (SDF_KINDS.index(sd.kind),)
+            + _apply_pt(r, t, s, sd.center)
+            + params
+            + (_material_id(sd),)
+            + tuple(r.T.reshape(9).tolist())
+            + (s,)
+        )
+
     materials = [
         tuple(m.albedo) + tuple(m.emissive) + tuple(m.reflection_tint) + (m.roughness, m.ior)
         for m in mats
@@ -127,6 +140,7 @@ def compile_scene(descr: SceneDescription, device="cpu") -> SceneTables:
         spheres=table(spheres, 5),
         planes=table(planes, 9),
         materials=table(materials, 11),
+        sdfs=table(sdfs, SDF_COLS),
     )
 
 
@@ -134,8 +148,6 @@ def from_numpy_scene(scene, device="cpu") -> SceneTables:
     """The port's tables from a `cornelis_tpu` SceneArrays whose leaves are
     numpy arrays (`jax.device_get(compile_scene(d))`). Reads attributes
     only, so it needs no jax."""
-    if np.asarray(scene.sdf_kind).size:
-        raise NotImplementedError("SDF primitives are not ported yet")
     f = lambda a: np.asarray(a, np.float32)
     cam = scene.camera
     camera = np.concatenate(
@@ -175,7 +187,22 @@ def from_numpy_scene(scene, device="cpu") -> SceneTables:
         ],
         axis=1,
     )
+    n_sdf = f(scene.sdf_kind).shape[0]
+    sdfs = np.concatenate(
+        [
+            np.stack(
+                [f(scene.sdf_kind), f(scene.sdf_center.x), f(scene.sdf_center.y),
+                 f(scene.sdf_center.z)],
+                axis=1,
+            ).reshape(n_sdf, 4),
+            f(scene.sdf_params).reshape(n_sdf, 4),
+            f(scene.sdf_material).reshape(n_sdf, 1),
+            f(scene.sdf_rot).reshape(n_sdf, 9),
+            f(scene.sdf_scale).reshape(n_sdf, 1),
+        ],
+        axis=1,
+    )
     return SceneTables(
         *(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-          for a in (camera, spheres, planes, materials))
+          for a in (camera, spheres, planes, materials, sdfs))
     )

@@ -7,9 +7,8 @@ one). `sphere_on_plane` is the first-milestone scene from BASELINE.json
 config 1 (diffuse sphere + ground plane).
 
 A copy of `cornelis_tpu/scene/library.py` (the descriptions are plain
-data; see scene/description.py for why it is copied). `sdf_gallery` is
-listed so that its JSON round-trips, but `compile_scene` rejects SDFs:
-the port's kernel has no SDF candidates yet.
+data; see scene/description.py for why it is copied). `sdf_gallery`
+renders through the SDF instantiations of the megakernel.
 """
 
 from __future__ import annotations
@@ -229,6 +228,31 @@ def sdf_gallery() -> SceneDescription:
             material=ground,
         )
     )
+    return scene
+
+
+def sdf_gallery_transformed() -> SceneDescription:
+    """`sdf_gallery` with its torus and box turned about their own centres
+    and uniformly scaled (0.8 and 1.25): SDFs under a transform. Not a
+    builtin of the JAX package; the port's tests and chip_smoke.py carry
+    it to the JAX package through `to_json`."""
+    import math
+
+    import numpy as np
+
+    def turned(center, ax, ay, scale):
+        cx, sx, cy, sy = math.cos(ax), math.sin(ax), math.cos(ay), math.sin(ay)
+        r = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]]) @ np.array(
+            [[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+        m = np.eye(4)
+        m[:3, :3] = scale * r
+        m[:3, 3] = np.asarray(center) - scale * (r @ np.asarray(center))
+        return m.tolist()
+
+    scene = sdf_gallery()
+    torus, box = scene.sdfs[0], scene.sdfs[1]
+    torus.transform = turned(torus.center, 0.9, 0.3, 0.8)
+    box.transform = turned(box.center, 0.4, 0.7, 1.25)
     return scene
 
 

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Where the time of the port's main path goes, on one CUDA device.
 
-    python3 profile_render.py [--integrator nee] [--sampler sobol]
+    python3 profile_render.py [--scene sdf-gallery] [--integrator nee] [--sampler sobol]
 
-Renders `RenderSession(cornell_box(), RenderOptions(...))` (512x512, 256
-spp, max_depth 64, the CUDA kernel; path/uniform unless the flags say
-otherwise) and prints, with the card's name and power limit:
+Renders `RenderSession(scene, RenderOptions(...))` (the Cornell box unless
+--scene names another builtin; 512x512, 256 spp, max_depth 64, the CUDA
+kernel; path/uniform unless the flags say otherwise) and prints, with the
+card's name and power limit:
 
+  - what warm_kernels() took (the libraries' and kernels' load, the first
+    zero fill), called before anything else, and the first render after it;
   - the render's wall time with the PNG written and without it, five runs
     each after a warm-up, sorted, and their medians;
   - one render under torch.profiler: the busiest device operations, the
@@ -21,9 +24,9 @@ lines.
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -44,22 +47,11 @@ def walls(session, runs=5):
     return sorted(out)
 
 
-def event_ms(fn, launches):
-    import torch
-
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(launches):
-        fn(i)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / launches
-
-
 def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--scene", default="cornell", help="a builtin scene (default cornell)")
     parser.add_argument("--integrator", choices=("path", "nee"), default="path")
     parser.add_argument("--sampler", choices=("uniform", "sobol"), default="uniform")
     args = parser.parse_args()
@@ -71,24 +63,30 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from cornelis_tpu_torch import RenderOptions, RenderSession, cornell_box
+    from cornelis_tpu_torch import BUILTIN_SCENES, RenderOptions, RenderSession
     from cornelis_tpu_torch.ops import megakernel
+    from cornelis_tpu_torch.ops.warm import warm_kernels
     from cornelis_tpu_torch.rng import key_row
+    from cornelis_tpu_torch.utils.timing import card_line, event_ms
 
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0])
+    print(card_line())
 
-    print(f"integrator {args.integrator}, sampler {args.sampler}")
+    print(f"scene {args.scene}, integrator {args.integrator}, sampler {args.sampler}")
+    if args.scene not in BUILTIN_SCENES:
+        parser.error(f"--scene must be one of {sorted(BUILTIN_SCENES)}")
+    scene = BUILTIN_SCENES[args.scene]
+    warmed = warm_kernels()
+    print(f"warm_kernels(): load {warmed['load_s'] * 1e3:.3f} ms, first zero fill "
+          f"{warmed['first_launch_s'] * 1e3:.3f} ms")
     variant = dict(integrator=args.integrator, sampler=args.sampler)
     with tempfile.TemporaryDirectory() as tmp:
-        with_png = RenderSession(
-            cornell_box(), RenderOptions(output=os.path.join(tmp, "p.png"), **variant)
-        )
-        no_png = RenderSession(cornell_box(), RenderOptions(output=None, **variant))
-        with_png.render()  # builds and loads the kernel
+        with_png = RenderSession(scene(), RenderOptions(output=os.path.join(tmp, "p.png"), **variant))
+        no_png = RenderSession(scene(), RenderOptions(output=None, **variant))
+        t0 = time.perf_counter()
+        with_png.render()
         torch.cuda.synchronize()
+        print(f"first render after warm_kernels(), PNG written: "
+              f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
         for name, session in (("PNG written", with_png), ("no PNG", no_png)):
             w = walls(session)
             print(f"render wall, {name}: median {statistics.median(w) * 1e3:.2f} ms, "
@@ -117,10 +115,11 @@ def main() -> int:
     def launch(offset, depth):
         return megakernel.render_rays(tables, k0, k1, 512, 512, 32, offset, depth, **kw)
 
-    ms = event_ms(lambda i: launch(32 * (i % 8), 64), 20)
+    offsets = itertools.cycle(range(0, 256, 32))
+    ms = event_ms(lambda: launch(next(offsets), 64), 20)
     print(f"kernel per 32-spp launch at 512x512 (events, 20 launches): {ms:.3f} ms")
     for depth in (1, 2, 4, 8, 16, 64):
-        ms = event_ms(lambda i: launch(0, depth), 10)
+        ms = event_ms(lambda: launch(0, depth), 10)
         print(f"kernel per launch at max_depth {depth} (events, 10 launches): {ms:.3f} ms")
     return 0
 

@@ -13,7 +13,10 @@ So at least 99% of rays within rtol = atol = 1e-4 and each channel's mean
 within 1%, the bar of `chip_smoke.py` and of the plain version against
 the Pallas kernel in `tests/test_torch_megakernel.py`. The light-table
 kernel does only float32 products and sums in the plain version's
-order, so it is held to float32 rounding.
+order, so it is held to float32 rounding. The SDF instantiations are held
+to the same bar on sdf_gallery. The zero fill must equal torch.zeros; the
+probes their plain versions, float32 within 1 ulp (they round every
+operation as the plain versions do) and bfloat16 within 1 bfloat16 ulp.
 """
 
 import numpy as np
@@ -21,8 +24,10 @@ import pytest
 import torch
 
 from cornelis_tpu_torch import RenderOptions, RenderSession, RenderStatus
-from cornelis_tpu_torch.ops import lights, megakernel
+from cornelis_tpu_torch.ops import lights, megakernel, warm
 from cornelis_tpu_torch.ops.dynamic import render_chunk_dynamic
+from cornelis_tpu_torch.probes import bf16 as bf16_probe
+from cornelis_tpu_torch.probes import scene_table
 from cornelis_tpu_torch.rng import DEFAULT_SEED, key_row
 from cornelis_tpu_torch.scene import library as tlib
 from cornelis_tpu_torch.scene.compile import compile_scene
@@ -124,3 +129,74 @@ def test_cuda_session_launches_kernel_per_chunk(cuda, mode, sampler):
     assert megakernel.LAUNCHES == before + 2 == before + result.chunks
     assert result.image.shape == (32, 32, 3) and np.isfinite(result.image).all()
     assert result.image.sum() > 0
+
+
+@pytest.mark.parametrize("mode,sampler", VARIANTS)
+def test_cuda_sdf_variant_matches_plain_version(cuda, mode, sampler):
+    tables = compile_scene(tlib.sdf_gallery(), device="cuda")
+    k0, k1, root = key_row(DEFAULT_SEED)
+    kw = dict(root=root, sampler=sampler, mode=mode, index_bits=megakernel.index_bits_for(16),
+              lights=lights.light_table(tables) if mode == "nee" else None)
+    args = (tables, k0, k1, 32, 32, 4, 4, 64)
+    before = megakernel.SDF_LAUNCHES
+    k = megakernel.render_rays(*args, **kw)
+    torch.cuda.synchronize()
+    assert megakernel.SDF_LAUNCHES == before + 1
+    p = megakernel.render_rays_reference(*args, "cuda", **kw)
+    frac, mean_rel = agreement(k.cpu().numpy(), p.cpu().numpy())
+    assert torch.isfinite(k).all()
+    assert frac >= 0.99 and (mean_rel <= 1e-2).all()
+
+
+def test_cuda_sdf_session_launches_the_sdf_kernel(cuda):
+    opts = RenderOptions(width=32, height=32, samples_aa=8, spp_chunk=4, max_depth=8,
+                         output=None, device="cuda")
+    before = megakernel.LAUNCHES, megakernel.SDF_LAUNCHES
+    result = RenderSession(tlib.sdf_gallery(), opts).render()
+    assert result.status == RenderStatus.DONE
+    assert (megakernel.LAUNCHES, megakernel.SDF_LAUNCHES) == (before[0] + 2, before[1] + 2)
+    assert np.isfinite(result.image).all() and result.image.sum() > 0
+
+
+def test_cuda_dynamic_raises_on_sdf_tables(cuda):
+    tables = compile_scene(tlib.sdf_gallery(), device="cuda")
+    with pytest.raises(NotImplementedError):
+        render_chunk_dynamic(tables, key_row(0), 0, width=8, height=8, spp_chunk=1,
+                             spp_total=1, max_depth=2)
+
+
+def test_cuda_warm_kernels_and_zero_fill(cuda):
+    before = warm.LAUNCHES
+    out = warm.warm_kernels()
+    assert warm.LAUNCHES == before + 1
+    assert out["load_s"] >= 0 and out["first_launch_s"] >= 0
+    assert torch.equal(out["zeros"], torch.zeros((8, 128), device="cuda"))
+    z = warm.zero_block("cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(z, warm.zero_block_reference("cuda"))
+
+
+@pytest.mark.parametrize("n_obj", scene_table.BAKED_COUNTS)
+def test_cuda_scan_probes_match_plain_versions(cuda, n_obj):
+    o = scene_table.probe_input("cuda")
+    tab = scene_table.table(n_obj, "cuda")
+    before = dict(scene_table.LAUNCHES)
+    baked, dynamic = scene_table.scan_baked(o, n_obj), scene_table.scan_dynamic(o, tab)
+    torch.cuda.synchronize()
+    assert scene_table.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    torch.testing.assert_close(baked, scene_table.scan_baked_reference(o, n_obj),
+                               rtol=2.0 ** -23, atol=0.0)
+    torch.testing.assert_close(dynamic, scene_table.scan_dynamic_reference(o, tab),
+                               rtol=2.0 ** -23, atol=0.0)
+    with pytest.raises(ValueError):
+        scene_table.scan_baked(o, n_obj + 1)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 2.0 ** -23), (torch.bfloat16, 2.0 ** -8)])
+def test_cuda_quad_probe_matches_plain_version(cuda, dtype, rtol):
+    x = bf16_probe.probe_input(dtype, "cuda")
+    got = bf16_probe.quad_probe(x)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), bf16_probe.quad_reference(x).float(), rtol=rtol,
+                               atol=0.0)

@@ -135,8 +135,13 @@ def test_no_objects_raises_value_error():
 
 
 def test_sdf_scene_raises_not_implemented():
-    with pytest.raises(NotImplementedError):
-        from_numpy_scene(jax.device_get(jcompile(sdf_gallery())))
+    # The tables carry SDFs now, but K3 takes none, as
+    # render_chunk_pallas_dynamic (pallas_dynamic.py:591) takes none.
+    tables = from_numpy_scene(jax.device_get(jcompile(sdf_gallery())))
+    assert tables.sdfs.shape[0] == 3
+    for mode in ("path", "nee"):
+        with pytest.raises(NotImplementedError):
+            render_chunk_dynamic(tables, key_row(0), 0, sampler="sobol", mode=mode, **KW)
 
 
 def test_cpu_tables_launch_nothing():

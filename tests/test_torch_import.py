@@ -52,7 +52,11 @@ def test_jax_is_really_blocked(tmp_path):
         "cornelis_tpu_torch.ops.build",
         "cornelis_tpu_torch.ops.dynamic",
         "cornelis_tpu_torch.ops.lights",
+        "cornelis_tpu_torch.ops.warm",
+        "cornelis_tpu_torch.probes.scene_table",
+        "cornelis_tpu_torch.probes.bf16",
         "cornelis_tpu_torch.sampling",
+        "cornelis_tpu_torch.utils.timing",
     ],
 )
 def test_import_without_jax(module, tmp_path):

@@ -20,7 +20,9 @@ from cornelis_tpu_torch.scene.description import (
     SphereDescription,
 )
 
-ANALYTIC = [name for name in tlib.BUILTIN_SCENES if name != "sdf-gallery"]
+# Every builtin, SDF scenes included (tests/test_torch_sdf.py holds the
+# SDF table's columns to the JAX package's arrays).
+ANALYTIC = list(tlib.BUILTIN_SCENES)
 
 
 def test_same_builtin_scenes():
@@ -78,11 +80,14 @@ def test_transformed_scene_equal_jax():
 
 
 def test_sdf_scenes_raise():
-    with pytest.raises(NotImplementedError):
-        compile_scene(tlib.sdf_gallery())
+    # SDF scenes compile; one whose SDF names a material that is not in the
+    # table raises, as a sphere or a plane with one does.
+    assert compile_scene(tlib.sdf_gallery()).sdfs.shape == (3, 19)
     d = SceneDescription()
     d.add_sdf(SDFDescription())
-    with pytest.raises(NotImplementedError):
+    assert compile_scene(d).sdfs.shape == (1, 19)
+    d.add_sdf(SDFDescription(kind="box", material=4))
+    with pytest.raises(ValueError):
         compile_scene(d)
 
 
@@ -96,5 +101,5 @@ def test_material_ids_checked():
 def test_empty_object_tables():
     d = SceneDescription()
     t = compile_scene(d)
-    assert t.spheres.shape == (0, 5) and t.planes.shape == (0, 9)
+    assert t.spheres.shape == (0, 5) and t.planes.shape == (0, 9) and t.sdfs.shape == (0, 19)
     assert t.materials.shape == (1, 11)

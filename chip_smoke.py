@@ -9,9 +9,8 @@ raises, so the exit code is not 0 and no result line is printed:
 
   1. card and tools: the device, its power limit, torch, CUDA, nvcc;
   2. build: every library of ops/csrc/ with nvcc, in parallel, timed, and
-     the registers and spills of each kernel instantiation (the four
-     sphere-and-plane megakernel instantiations held to their counts
-     before the SDF ones were added); then the warm-up path (K2):
+     the registers and spills of each kernel instantiation (no megakernel
+     instantiation may spill); then the warm-up path (K2):
      warm_kernels() loads every library and megakernel instantiation and
      launches the zero fill, whose output must equal torch.zeros, with
      the seconds of the load and of the first launch; and the first and
@@ -21,7 +20,9 @@ raises, so the exit code is not 0 and no result line is printed:
      same card, ray by ray, at 64x64, 16 spp, max_depth 64, on
      cornell_box, cornell_panel and a mixed sphere + panel scene, and
      each SDF instantiation on sdf_gallery and on a scene whose torus and
-     box are turned and scaled; the dynamic-scene render (K3: the same
+     box are turned and scaled, and path/uniform on sphere_grid(2200) and
+     sphere_grid(3000), whose tables cross the kernel's 48 KB and 64 KB
+     shared-memory marks; the dynamic-scene render (K3: the same
      kernel fed by the light table built on the device) on cornell_box
      and cornell_panel; the table kernel against its plain version;
      doubling every emission doubles K3's nee image; neither that edit
@@ -47,14 +48,16 @@ raises, so the exit code is not 0 and no result line is printed:
      marches in torch ops over 8.4M rays take long); the two outputs, and
      those of the last chunk (offset 224), held to the phase-3 bar ray by
      ray; the probes at their JAX shapes and the zero fill against
-     torch.zeros (CUDA events); then the pinned NEE firefly of
+     torch.zeros (CUDA events, with torch.empty's time beside them: the
+     allocation both pay); then the pinned NEE firefly of
      tests/test_nee.py on the kernel, clamp off and on (printed only).
 
 Each kernel's least time (bound_ms) is computed from this run's inputs:
 for the megakernel, the float32 operations of the work the kernel does
 for the timed rays (closest-hit scans, hits, bounces, light samples,
-shadow rays and lit samples, SDF march steps and normals; counted by
-`counted_work` on a second run of the plain version) at the per-part
+shadow rays and lit samples, SDF march steps below the best hit and below
+t_max, and normals; counted by `counted_work` on a second run of the plain
+version) at the per-part
 counts of OPS, over 67 TFLOP/s; for the others, the larger of their
 operations over the peak of their type (float32 67, bfloat16 outside the
 tensor cores 133.8 TFLOP/s) and their bytes over 3.35 TB/s. The last
@@ -109,12 +112,12 @@ K4_TPU = "benchmarks/bf16_probe.py:36"
 K5_TPU = "benchmarks/dynamic_scene_probe.py:61"
 K6_TPU = "benchmarks/dynamic_scene_probe.py:94"
 TABLE = "light_table_dyn"
+# K1's staging of tables larger than its shared-memory cap (not on a main
+# path: phase 3 drives it with sphere_grid(3000)).
+STAGE = "stage_tables"
 ZERO = "zero_fill"
 BAKED, DYNAMIC = "scan_baked", "scan_dynamic"
 QUAD = {"float32": "quad_probe f32", "bfloat16": "quad_probe bf16"}
-# Registers of the sphere-and-plane instantiations before the SDF ones
-# were added (ptxas; PERF.md): the SDF template parameter must not move them.
-CORNELL_REGISTERS = {"path/uniform": 58, "path/sobol": 56, "nee/uniform": 72, "nee/sobol": 72}
 # The SDF phase-5 plain version traces every SDF_STRIDE-th ray of the
 # kernel's 32-spp chunk (a stride prime to 32, so every sample index of
 # the chunk is among them): 270,601 rays.
@@ -149,11 +152,14 @@ PEAK_BYTES = 3.35e12
 #     plane's basis (44; the sphere cone takes about 95), cos and its test;
 #   nee_emission, every hit after the first: emission's MIS weight and
 #     clamp; nee_shadow, every shadow ray cast: its origin and ray_pre (the
-#     scan is not counted: it may stop at its first occluder); nee_shade,
+#     sphere and plane scan is not counted: it may stop at its first
+#     occluder; its SDF march steps are, as sdf_step); nee_shade,
 #     every unoccluded light sample: layered_eval, layered_pdf_true, MIS,
 #     clamps and sum;
 #   sdf_step: one march step by kind (point, centre, rotation, scale,
-#     distance, tests, step); sdf_normal: the tetrahedron normal by kind.
+#     distance, tests, step), counted only below the limit the kernel's
+#     march stops at (the best hit so far, t_max); sdf_normal: the
+#     tetrahedron normal by kind.
 OPS = {
     "camera": 25, "ray_pre": 14, "sphere": 25, "sphere_win": 20, "plane": 35,
     "sdf_ray": 16, "sdf": 6, "hit": 23, "bounce": 247, "bounce_pdf": {"path": 46, "nee": 47},
@@ -219,6 +225,9 @@ def instantiation_name(entry: str) -> str:
         name = kernel_name("megakernel", ("path", "nee")[int(m.group(1))],
                            ("uniform", "sobol")[int(m.group(2))])
         return name + (" sdf" if m.group(3) == "1" else "")
+    m = re.search(r"stage_tablesILb([01])E", entry)
+    if m:
+        return f"{STAGE} {('path', 'nee')[int(m.group(1))]}"
     m = re.search(r"scan_bakedILi(\d+)E", entry)
     if m:
         return f"{BAKED} {m.group(1)}"
@@ -319,12 +328,15 @@ def counted_work(megakernel, run):
     still runs) when they moved since the depth before. Counts: "traced"
     closest-hit scans, "hits" and "later_hits" (after the first bounce),
     "bounces" (live at the next depth: a bounce at the last depth is not
-    seen), "sdf_hits" (each needing a normal), "march_steps" {kind:
-    steps}, and in mode nee "shadow_rays" (valid light samples facing the
-    surface) and "lit" (those unoccluded)."""
+    seen), "sdf_hits" (each needing a normal), "march_steps" {kind: steps}
+    (each SDF's march up to the best hit of the spheres, planes and earlier
+    SDFs), and in mode nee "shadow_rays" (valid light samples facing the
+    surface), "lit" (those unoccluded) and "shadow_steps" {kind: steps}
+    (the SDF marches of shadow rays no sphere or plane occludes, each up
+    to t_max, until one occludes)."""
     import torch
 
-    from cornelis_tpu_torch.geometry import sdf_march_steps
+    from cornelis_tpu_torch.geometry import sdf_candidate, sdf_march_steps
     from cornelis_tpu_torch.math.vec import Vec3, dot
 
     names = ("intersect", "_sample_light", "occluded")
@@ -347,10 +359,15 @@ def counted_work(megakernel, run):
         add("traced", live)
         add("hits", live & hit)
         add("sdf_hits", live & hit & (prim < 0))
-        for kind, center, params, _m, rot, scale in megakernel._sdf_rows(tables):
-            steps = sdf_march_steps(Vec3(*(c[live] for c in o)), Vec3(*(c[live] for c in d)),
-                                    kind, center, params, rot, scale)
-            add(("march", kind), steps)
+        if tables.sdfs.shape[0]:
+            lo, ld = Vec3(*(c[live] for c in o)), Vec3(*(c[live] for c in d))
+            best = orig["intersect"](tables._replace(sdfs=tables.sdfs[:0]), lo, ld)[0]
+            for kind, center, params, _m, rot, scale in megakernel._sdf_rows(tables):
+                add(("march", kind), sdf_march_steps(lo, ld, kind, center, params, rot, scale,
+                                                     limit=best))
+                t, _p, _n, valid = sdf_candidate(lo, ld, kind, center, params, rot=rot,
+                                                 scale=scale, with_normal=False, limit=best)
+                best = torch.where(valid & (best > t), t, best)
         return out
 
     def sample_light(*args):
@@ -363,6 +380,17 @@ def counted_work(megakernel, run):
     def occluded(tables, o, d, t_max):
         occ = orig["occluded"](tables, o, d, t_max)
         add("lit", state["cast"] & ~occ)
+        if tables.sdfs.shape[0]:
+            left = state["cast"] & ~orig["occluded"](tables._replace(sdfs=tables.sdfs[:0]), o, d,
+                                                     t_max)
+            for kind, center, params, _m, rot, scale in megakernel._sdf_rows(tables):
+                idx = left.nonzero().flatten()
+                so, sd = Vec3(*(c[idx] for c in o)), Vec3(*(c[idx] for c in d))
+                add(("shadow", kind), sdf_march_steps(so, sd, kind, center, params, rot, scale,
+                                                      limit=t_max[idx]))
+                t, _p, _n, valid = sdf_candidate(so, sd, kind, center, params, rot=rot,
+                                                 scale=scale, with_normal=False, limit=t_max[idx])
+                left[idx] = ~(valid & (t < t_max[idx]))
         return occ
 
     wrappers = {"intersect": intersect, "_sample_light": sample_light, "occluded": occluded}
@@ -373,10 +401,10 @@ def counted_work(megakernel, run):
     finally:
         for name in names:
             setattr(megakernel, name, orig[name])
-    work = {"march_steps": {}}
+    work = {"march_steps": {}, "shadow_steps": {}}
     for key, n in counts.items():
         if isinstance(key, tuple):
-            work["march_steps"][key[1]] = int(n)
+            work[f"{key[0]}_steps"][key[1]] = int(n)
         else:
             work[key] = int(n)
     return result, work
@@ -397,6 +425,7 @@ def megakernel_bound_ms(work: dict, n_rays: int, tables, mode: str, scale: float
         + work["hits"] * OPS["hit"]
         + work.get("bounces", 0) * (OPS["bounce"] + OPS["bounce_pdf"][mode])
         + sum(OPS["sdf_step"][k] * n for k, n in work["march_steps"].items())
+        + sum(OPS["sdf_step"][k] * n for k, n in work["shadow_steps"].items())
         + (work["sdf_hits"] * min(OPS["sdf_normal"][k] for k in kinds) if kinds else 0)
     )
     if mode == "nee":
@@ -468,6 +497,7 @@ def main() -> int:
         cornell_panel,
         sdf_gallery,
         sdf_gallery_transformed,
+        sphere_grid,
     )
     from cornelis_tpu_torch.utils.png import read_png
     from cornelis_tpu_torch.utils.timing import card_line, event_ms
@@ -498,11 +528,11 @@ def main() -> int:
     for name, (regs, stack, spill) in sorted(ptxas.items()):
         print(f"  {name}: {regs} registers, {stack} B stack, {spill} B spilled"
               + (f", {sass[name]} SASS instructions" if name in sass else ""))
-    check(len(ptxas) == 15, f"expected 15 kernel instantiations, ptxas reported {sorted(ptxas)}")
+    check(len(ptxas) == 17, f"expected 17 kernel instantiations, ptxas reported {sorted(ptxas)}")
     # Checked at the end, so that a run that fails here still reports the rest.
-    kept = {v: ptxas[f"megakernel {v}"][0] for v in CORNELL_REGISTERS}
-    print(f"the sphere-and-plane instantiations' registers: {kept} (before the SDF "
-          f"instantiations: {CORNELL_REGISTERS})")
+    spilled = {name: spill for name, (_r, _s, spill) in ptxas.items()
+               if name.startswith(("megakernel", STAGE)) and spill != 0}
+    print(f"megakernel instantiations that spill: {spilled or 'none'}")
 
     # Every kernel of the report: {name: dict of the kernels line}.
     records = {}
@@ -510,7 +540,8 @@ def main() -> int:
     def record(name, source, replaces, instantiation, tol=RAY_TOL):
         records[name] = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "registers": ptxas[instantiation][0], "launches": 0, "fracs": [], "errs": [],
+            "registers": ptxas[instantiation][0], "spill_bytes": ptxas[instantiation][2],
+            "launches": 0, "fracs": [], "errs": [],
             "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": "operations",
             "library_ms": None, "tol": tol,
         }
@@ -659,6 +690,19 @@ def main() -> int:
             frac, err = hold_to_plain(f"{name} on {scene_name}", kern, plain)
             records[name]["fracs"].append(frac)
             records[name]["errs"].append(err)
+
+    # Tables past the shared-memory cap: sphere_grid(3000)'s are staged in
+    # device memory by stage_tables, sphere_grid(2200)'s in 56 KB of shared
+    # memory (above the 48 KB default); path/uniform at 8x8, 2 spp, depth 3.
+    for n_grid in (2200, 3000):
+        tables = compile_scene(sphere_grid(n_grid), device="cuda")
+        args = (tables, k0, k1, 8, 8, 2, 0, 3)
+        kern = megakernel.render_rays(*args, root=root)
+        torch.cuda.synchronize()
+        plain = megakernel.render_rays_reference(*args, "cuda", root=root)
+        frac, err = hold_to_plain(f"megakernel path/uniform on sphere_grid({n_grid})", kern, plain)
+        records[kernel_name("megakernel", "path", "uniform")]["fracs"].append(frac)
+        records[kernel_name("megakernel", "path", "uniform")]["errs"].append(err)
 
     # K2 and the probes at their JAX shapes against their plain versions.
     zeros = warm.zero_block("cuda")
@@ -882,14 +926,33 @@ def main() -> int:
     print(f"{TABLE} on cornell_box: kernel {kernel_s * 1e3:.4f} ms, plain {plain_s * 1e3:.4f} ms "
           f"(host clock around a synchronize)")
 
-    # K2 against torch.zeros, its plain version and its library call.
+    # K2 against torch.zeros, its plain version and its library call, each
+    # given the same torch.device, in five alternating rounds of 200 calls
+    # (medians); beside them the two parts of the zero fill's floor:
+    # torch.empty, which it and torch.zeros both pay, and its C entry's
+    # launch alone.
     rec = records[ZERO]
-    rec["ms"] = event_ms(lambda: warm.zero_block("cuda"), 200)
-    rec["plain_ms"] = event_ms(lambda: warm.zero_block_reference("cuda"), 200)
-    rec["library_ms"] = event_ms(lambda: torch.zeros((8, 128), device="cuda"), 200)
+    dev = torch.device("cuda")
+    block = torch.empty((8, 128), device=dev)
+    fill = warm._kernel_fn()
+    calls = {
+        "ms": lambda: warm.zero_block(dev),
+        "library_ms": lambda: torch.zeros((8, 128), device=dev),
+        "plain_ms": lambda: warm.zero_block_reference(dev),
+        "empty": lambda: torch.empty((8, 128), device=dev),
+        "launch": lambda: fill(block.data_ptr(), block.numel(), torch._C._cuda_getCurrentRawStream(-1)),
+    }
+    readings = {key: [] for key in calls}
+    for _ in range(5):
+        for key, call in calls.items():
+            readings[key].append(event_ms(call, 200))
+    k2 = {key: statistics.median(ms) for key, ms in readings.items()}
+    rec.update(ms=k2["ms"], plain_ms=k2["plain_ms"], library_ms=k2["library_ms"])
     rec["bound_ms"], rec["bound_by"] = bound_ms(8 * 128 * 4)
-    print(f"{ZERO}: kernel {rec['ms']:.5f} ms, plain version {rec['plain_ms']:.5f} ms, "
-          f"torch.zeros {rec['library_ms']:.5f} ms (CUDA events, 200 launches)")
+    print(f"{ZERO}: kernel {k2['ms']:.5f} ms, torch.zeros {k2['library_ms']:.5f} ms "
+          f"({k2['ms'] / k2['library_ms']:.3f}x), plain version {k2['plain_ms']:.5f} ms; its floor: "
+          f"torch.empty {k2['empty']:.5f} ms + the C entry's launch {k2['launch']:.5f} ms (CUDA "
+          f"events, medians of 5 alternating rounds of 200 calls; readings {readings})")
 
     # The probes at their JAX shapes (CUDA events over 32 launches; the
     # plain versions one run by the host clock). Operations: SCAN_OPS and
@@ -940,8 +1003,7 @@ def main() -> int:
               f"{plain.sum(0).max().item():.6g}")
     phase_done()
 
-    check(kept == CORNELL_REGISTERS, f"sphere-and-plane registers moved: {kept}")
-    check(ptxas["megakernel path/uniform"][2] == 0, "megakernel path/uniform spills")
+    check(not spilled, f"megakernel instantiations spill: {spilled}")
     kernels = []
     for rec in records.values():
         fracs, errs = rec.pop("fracs"), rec.pop("errs")

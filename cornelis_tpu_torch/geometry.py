@@ -197,33 +197,61 @@ def _sdf_frame(d: Vec3, kind: int, params, rot, scale):
     return deg, dlen, dn, to_local, world_dist
 
 
-def _march(o: Vec3, dn: Vec3, center: Vec3, world_dist):
+def _mul_round_up(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """float32 a * b rounded toward +inf, as CUDA's __fmul_ru: the exact
+    product (float64 holds it), rounded to nearest, then one float32 step
+    up where that fell below it."""
+    exact = a.double() * b.double()
+    f = exact.float()
+    return torch.where(f.double() < exact, torch.nextafter(f, torch.full_like(f, INF)), f)
+
+
+def _march(o: Vec3, dn: Vec3, center: Vec3, world_dist, lim_w=None):
     """The sphere trace along the unit direction dn: (t_world, each ray's
-    distance evaluations until it is done)."""
+    distance evaluations until it is done, whether it stopped at lim_w).
+    With a world-unit limit lim_w a ray stops, before its next evaluation,
+    once its t reaches lim_w, as the CUDA kernel's march does."""
     t = torch.zeros_like(o.x)
     done = torch.zeros_like(o.x, dtype=torch.bool)
+    stopped = torch.zeros_like(done)
     steps = torch.zeros_like(o.x, dtype=torch.int32)
     for step in range(SPHERE_TRACE_STEPS):
         if step % _DONE_CHECK == 0 and step and bool(done.all()):
             break
+        if lim_w is not None:
+            stop = ~done & (t >= lim_w)
+            stopped = stopped | stop
+            done = done | stop
         steps += ~done
         dist = world_dist(ray_at(o, dn, t) - center)
         eps = SDF_EPS * torch.clamp_min(t, 1.0)
         done = done | (torch.abs(dist) < eps) | (t > SDF_MAX_T)
         t = torch.where(done, t, t + torch.maximum(dist, 0.5 * eps))
-    return t, steps
+    if lim_w is not None:  # no final test past the limit after the last step
+        stopped = stopped | (~done & (t >= lim_w))
+    return t, steps, stopped
+
+
+def _world_limit(limit, dlen: torch.Tensor):
+    """`limit` (the ray's own parameterization) as the world-unit limit of
+    the march, or None for +inf."""
+    limit = torch.as_tensor(limit, dtype=torch.float32, device=dlen.device)
+    if bool(torch.isinf(limit).all()) and bool((limit > 0).all()):
+        return None
+    return _mul_round_up(limit.expand_as(dlen), dlen)
 
 
 def sdf_march_steps(o: Vec3, d: Vec3, kind: int, center: Vec3, params, rot=None,
-                    scale=None) -> torch.Tensor:
-    """Each ray's distance evaluations in `sdf_candidate`'s march: what a
-    per-ray march that stops when it is done evaluates (int32)."""
-    _deg, _dlen, dn, _to_local, world_dist = _sdf_frame(d, kind, params, rot, scale)
-    return _march(o, dn, center, world_dist)[1]
+                    scale=None, limit=INF) -> torch.Tensor:
+    """Each ray's distance evaluations in `sdf_candidate`'s march, stopped
+    at `limit` as there: what a per-ray march that stops when it is done
+    evaluates (int32)."""
+    _deg, dlen, dn, _to_local, world_dist = _sdf_frame(d, kind, params, rot, scale)
+    return _march(o, dn, center, world_dist, _world_limit(limit, dlen))[1]
 
 
 def sdf_candidate(o: Vec3, d: Vec3, kind: int, center: Vec3, params, rot=None, scale=None,
-                  with_normal: bool = True):
+                  with_normal: bool = True, limit=INF):
     """Sphere-trace one SDF primitive for a batch of rays.
 
     Returns (t, p, n, valid) with t in the ray's own parameterization
@@ -232,14 +260,21 @@ def sdf_candidate(o: Vec3, d: Vec3, kind: int, center: Vec3, params, rot=None, s
     3x3) and `scale` the uniform object scale: distances are
     s * d_local(R (p - c) / s), normals the local gradient rotated back.
     with_normal=False skips the normal (n is None): the shadow ray needs
-    only t."""
+    only t.
+
+    `limit` (per ray, in the ray's parameterization) stops each march once
+    its world t reaches limit * |d| rounded up, as the CUDA kernel stops at
+    the best hit so far or at t_max; a ray stopped so is no hit. That
+    changes no decision `valid & (t < limit)`: any t the march could still
+    reach has t / |d| >= limit."""
     deg, dlen, dn, to_local, world_dist = _sdf_frame(d, kind, params, rot, scale)
-    t, _steps = _march(o, dn, center, world_dist)
+    t, _steps, stopped = _march(o, dn, center, world_dist, _world_limit(limit, dlen))
 
     p = ray_at(o, dn, t)
     eps = SDF_EPS * torch.clamp_min(t, 1.0)
     valid = (
         ~deg
+        & ~stopped
         & (torch.abs(world_dist(p - center)) < eps)
         & (t > torch.clamp_min(min_hit_t(o), SDF_MIN_T))
         & (t <= SDF_MAX_T)

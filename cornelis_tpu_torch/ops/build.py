@@ -5,7 +5,8 @@ PyTorch headers, so a build takes seconds), then loaded with ctypes. The
 library's file name carries a hash of the sources under csrc/ and the
 flags, so an edited source builds anew; it is written to a temporary name and moved
 into place, so a concurrent or interrupted build never leaves a partial
-library behind. Without nvcc, or when nvcc fails, this raises.
+library behind. Without nvcc, or when nvcc fails, this raises. `launch`
+is the one path from a wrapper to a C entry point.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -95,3 +98,18 @@ def build_all(force: bool = False) -> dict:
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:
         futures = {name: pool.submit(one, name) for name in LIBRARIES}
         return {name: f.result() for name, f in futures.items()}
+
+
+def launch(fn, device: torch.device, *args) -> None:
+    """Call the C entry `fn` with `args` and the current stream of the CUDA
+    `device` (the current device where it has no index), switching the
+    current device only when it is another; raise on a CUDA error. One
+    ctypes call: the raw stream comes from torch without a Stream object."""
+    index = device.index
+    if index is None or index == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(-1 if index is None else index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed with CUDA error {err}")

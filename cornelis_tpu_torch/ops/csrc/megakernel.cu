@@ -1,5 +1,6 @@
-// Path-tracing megakernel for Hopper (sm_90a): the whole path of one ray
-// per thread, from the camera jitter to the last bounce.
+// Path-tracing megakernel for Hopper (sm_90a): the whole path of a ray in
+// one thread, from the camera jitter to the last bounce, in persistent
+// blocks that start a new ray in a lane as soon as its path ends.
 //
 // Replaces cornelis_tpu/ops/pallas_integrator.py::_make_kernel (launched
 // there by _build_renderer through pl.pallas_call) on spheres, planes and
@@ -8,69 +9,88 @@
 // cornelis_tpu/ops/pallas_dynamic.py::_make_kernel_dyn, which differs only
 // in its light table (ops/lights.py builds both). Mode, sampler and SDF
 // support are template parameters; the SDF instantiations are launched only
-// for tables with SDF rows, so the sphere-and-plane ones compile as before.
-// This file instantiates mode "path" (entry point cornelis_megakernel);
-// megakernel_nee.cu includes it with CORNELIS_MEGAKERNEL_NEE defined and
-// instantiates mode "nee" (cornelis_megakernel_nee), compiled without FMA
-// contraction (ops/build.py). Why: in the reference scenes a camera ray
-// meets a sphere about 1000 units away, and the quadratic's cancellation
-// leaves the hit point up to ~1e-3 off the surface, more than the min_hit_t
-// guard. A point left inside its sphere shadows its own light sample, so
-// NEE flips a shadow ray wherever two versions round a hit point
-// differently: with contraction, a few % of rays against the plain torch
-// version. Path mode has no shadow ray and keeps the contracted code.
+// for tables with SDF rows. This file instantiates mode "path" (entry point
+// cornelis_megakernel); megakernel_nee.cu includes it with
+// CORNELIS_MEGAKERNEL_NEE defined and instantiates mode "nee"
+// (cornelis_megakernel_nee), compiled without FMA contraction
+// (ops/build.py). Why: in the reference scenes a camera ray meets a sphere
+// about 1000 units away, and the quadratic's cancellation leaves the hit
+// point up to ~1e-3 off the surface, more than the min_hit_t guard. A point
+// left inside its sphere shadows its own light sample, so NEE flips a shadow
+// ray wherever two versions round a hit point differently: with
+// contraction, a few % of rays against the plain torch version. Path mode
+// has no shadow ray and keeps the contracted code.
 //
 // It computes what those kernels compute, draw for draw: Threefry-2x32
 // uniforms keyed by (pixel, sample, stream, pair), or Owen-scrambled Sobol
 // pairs keyed by (pixel seed, sample, stream, pair); camera jitter and
 // generate_rays; then up to max_depth bounces of closest hit (two-phase
-// sphere scan, then finite planes, under the min_hit_t guard), emission,
-// layered BSDF sampling, Russian roulette and the throughput update. Mode
-// "nee" adds, per bounce, the MIS weight and depth-aware clamp of emission
-// found by BSDF sampling, a light chosen by the table's cumulative
-// probability, a sphere-cone or plane-area sample, a shadow ray, and the
-// MIS-weighted light contribution; it divides by the sampler's true
+// sphere scan, then finite planes, then SDFs, under the min_hit_t guard),
+// emission, layered BSDF sampling, Russian roulette and the throughput
+// update. Mode "nee" adds, per bounce, the MIS weight and depth-aware clamp
+// of emission found by BSDF sampling, a light chosen by the table's
+// cumulative probability, a sphere-cone or plane-area sample, a shadow ray,
+// and the MIS-weighted light contribution; it divides by the sampler's true
 // density. Every float expression keeps the JAX package's order of
 // operations; nvcc's default FMA contraction is the one known difference.
+// Draws depend only on (pixel, sample, stream, pair), so the order in which
+// rays are traced changes no ray's radiance.
 //
-// What bounds it on this card: FP32 issue rate and warp divergence, not
-// bytes. A ray reads no input (its pixel and sample come from its thread
-// index), writes 12 B of radiance, and spends thousands of FP32 and
-// special-function instructions per bounce; the scene and light tables (a
-// few hundred bytes) stay in L1/L2. Paths die at different depths under
-// Russian roulette and take different BSDF branches, so lanes of a warp
-// idle while the longest path in the warp runs. NEE adds a shadow ray per
-// bounce and a second branch (sphere or plane light).
+// What bounds it on this card: FP32 issue and warp divergence, not bytes. A
+// ray reads no input (its pixel and sample come from its index), writes 12
+// B of radiance, and spends thousands of FP32 and special-function
+// instructions per bounce. Three things kept lanes idle or busy for
+// nothing, and the design takes each on:
 //
-// What the design does about it: one thread per path with a per-thread
-// exit (the TPU exited per block of 2048 rays), only the chosen BSDF lobe
-// and the chosen light's branch evaluated (the TPU evaluated both and
-// selected; the functions are pure, so this is the same), the shadow ray
-// traced only where its contribution can be non-zero, no precomputed pixel
-// or sample arrays (the TPU needed them because its gathers were slow),
-// and consecutive threads on the samples of one pixel, so a warp starts
-// coherent. Path regeneration, table placement and a BVH are later work.
+// - Paths end at different depths (a miss, Russian roulette, max_depth):
+//   with one thread per ray a warp ran until its longest path ended, and
+//   about a third of its bounce lane-slots did no work. Here one wave of
+//   blocks (SMs x resident blocks per SM) stays resident; when a lane's path
+//   ends it writes its radiance and takes the next ray index at the top of
+//   the next bounce, so lanes idle only at the end of the launch. Indices
+//   are taken at two levels: a block claims CHUNK consecutive rays from the
+//   launch's counter with one atomicAdd, and its warps take from that range
+//   through one shared-memory atomic per warp and bounce, so a fresh lane
+//   starts on a neighbour of its warp's other rays.
+// - SDF marches that ran past any use: an SDF is sphere-traced after the
+//   spheres and planes, and each march now stops once its t reaches the
+//   best hit so far (closest hit) or t_max (shadow ray), where any hit it
+//   could still find would lose the strict comparison that follows (see
+//   sdf_march). Sky-bound rays no longer march ~20 growing steps per SDF to
+//   t = 1e6, and shadow rays stop at their light.
+// - Per-ray work on per-scene constants, and registers: the tables are
+//   expanded once into one layout (camera, planes with their tangent bases,
+//   SDF rows with 1/scale, materials, lights, spheres as float4), staged
+//   in each block's shared memory (or, past SMEM_CAP, once per launch in
+//   device memory) and read through one pointer. Every lane of a warp
+//   reads the same row as one broadcast, each plane's construct_basis runs
+//   once per block instead of per ray and scan, and no read chooses
+//   between two copies: a per-table choice of shared or device memory cost
+//   the nee instantiations some 10 registers. The scans carry only the
+//   best t and the winner; its point, normal (an SDF's tetrahedron normal)
+//   and material are taken once, after them. Occupancy then decides the
+//   time more than spills do (PERF.md), so each instantiation's
+//   __launch_bounds__ asks for the most blocks per SM at which ptxas still
+//   spills nothing.
 //
-// SDFs (K1's _intersect_const:495-502 and _occluded_const:530-534, which
-// call geometry.py::sdf_candidate): every SDF is sphere-traced for up to
-// SPHERE_TRACE_STEPS steps after the planes, in the closest-hit scan and in
-// the shadow ray. FP32 issue bounds it: a step costs about 50 operations
-// (point on the ray, rotation into the object frame, the kind's distance,
-// the convergence test), so a ray that grazes an object and marches all
-// 128 steps costs more than the rest of its bounce. The design: each thread
-// leaves its own march when it converges or escapes (the TPU froze done
-// lanes and ran all 128 steps), the kind is uniform across a warp (every
-// thread scans the same SDF), so the distance is a switch and not all three
-// formulas, the primitive's 17 floats are loaded once per scan, and the
-// normal (four more distance evaluations) is taken only for a hit that is
-// closer than the best so far. The SDF arithmetic rounds every operation
-// on its own (__fmul_rn, __fadd_rn, __fsqrt_rn, __fdiv_rn), whatever -fmad
-// says: the tetrahedron normal differences distances about 1e-4 apart, so
-// it amplifies a contracted ulp of the march by about 1e3.
+// What is left: divergence inside a bounce (BSDF lobes, light kinds) and
+// inside a scan (SDF marches of different lengths in one warp), and the
+// nee instantiations' 86-95 registers (5 blocks, 20 warps per SM); the
+// bound's work is FP32 issue at 67 TFLOP/s. A conservative bounding volume
+// per SDF and per-warp march compaction are later work.
+//
+// The SDF arithmetic rounds every operation on its own (__fmul_rn,
+// __fadd_rn, __fsqrt_rn, __fdiv_rn), whatever -fmad says: the tetrahedron
+// normal differences distances about 1e-4 apart, so it amplifies a
+// contracted ulp of the march by about 1e3.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+// The block's dynamic shared memory: the scene's tables, staged once per
+// block in the layout of `layout`.
+extern __shared__ __align__(16) float cornelis_smem[];
 
 namespace {
 
@@ -103,7 +123,39 @@ constexpr int LIGHT_COLS = 18;
 constexpr int COL_PROB = 0, COL_CUM = 1, COL_KIND = 2, COL_PRIM = 3, COL_G = 4, COL_LE = 12;
 constexpr int COL_R2 = 15, COL_R2_EDGE = 16, COL_AREA = 17;
 
+// Table row widths in device memory (scene/compile.py).
+constexpr int SPHERE_COLS = 5, PLANE_COLS = 9, MATERIAL_COLS = 11;
+constexpr int SDF_COLS = 19;  // kind, c xyz, p0..p3, material, R (9), scale
+
 constexpr int BLOCK = 128;
+constexpr unsigned FULL = 0xffffffffu;
+// Rays a block claims from the launch's counter at a time: two per thread,
+// so a block that claims the last range idles at most two paths' time.
+constexpr unsigned CHUNK = 2 * BLOCK;
+// The most shared memory a block stages the tables into (64 KB: a scene of
+// up to about 2,500 spheres; sphere_grid(512)'s 513 spheres take 10 KB);
+// above 48 KB the launch raises the kernel's dynamic shared-memory limit.
+// Larger tables are staged once per launch in device memory and read from
+// there through L1.
+constexpr int SMEM_CAP = 64 * 1024;
+constexpr int SMEM_DEFAULT = 48 * 1024;
+// The tables' expanded layout: a header (camera 12 floats, the NEE clamp
+// base), then each table at a 16-byte aligned offset. A plane row is four
+// float4: (n, w), (point, h), (t, material), (b, 0) with (t, b) its
+// construct_basis tangents; an SDF row five: (kind, c), (p0..p3),
+// (material, R0..R2), (R3..R6), (R7, R8, scale, 1/scale); spheres are
+// float4 (c, r) rows followed by their materials.
+constexpr int HEADER = 16;
+constexpr int PLANE_ROW = 16, SDF_ROW = 20;  // floats of a plane and an SDF row in it
+
+// Blocks per SM that each instantiation's __launch_bounds__ asks for: the
+// most at which ptxas spills nothing (65536 registers / 128 threads /
+// blocks: 8 -> 64 registers, 7 -> 72, 5 -> 96), from its measured
+// registers (PERF.md).
+template <bool NEE, bool SOBOL, bool SDF>
+struct MinBlocks {
+  static constexpr int value = NEE ? 5 : (SOBOL && !SDF ? 7 : 8);
+};
 
 struct V3 {
   float x, y, z;
@@ -153,6 +205,175 @@ __device__ __forceinline__ Basis construct_basis(V3 n) {
   bs.t = normalize(cross(helper, n));
   bs.b = cross(bs.t, n);
   return bs;
+}
+
+// ---- the launch ------------------------------------------------------------
+
+// One table of the scene: `n` rows in device memory, and where the rows
+// start in the expanded layout, in floats.
+struct Table {
+  const float* rows;
+  int n;
+  int at;
+};
+
+// Everything a launch reads, passed by value as a __grid_constant__: the
+// kernel reads it from the parameter bank, so it holds no registers and is
+// never copied to local memory.
+struct Launch {
+  Table spheres, planes, materials, sdfs, lights;
+  const float* tables;   // the expanded layout in device memory, or null: in shared memory
+  const float* camera;
+  const float* clamp;  // mode "nee": the clamp base
+  float* out;
+  unsigned* counter;  // rays claimed so far; zeroed by the launch
+  unsigned n_rays;
+  uint32_t k0, k1, root;
+  int width;
+  float inv_width, inv_height;
+  unsigned spp_chunk;
+  uint32_t sample_offset;
+  int max_depth, index_bits;
+};
+
+// The expanded layout of the tables, which every read goes through: in the
+// block's shared memory, or (when it is larger than SMEM_CAP) in device
+// memory, staged by stage_tables. One layout and one pointer, so no read
+// chooses between two.
+__device__ __forceinline__ const float* tables(const Launch& L) {
+  return L.tables != nullptr ? L.tables : cornelis_smem;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+// Sphere s: (center, radius), and its material.
+__device__ __forceinline__ float4 sphere_cr(const Launch& L, int s) {
+  return ld4(tables(L) + L.spheres.at + 4 * s);
+}
+__device__ __forceinline__ int sphere_mid(const Launch& L, int s) {
+  return (int)tables(L)[L.spheres.at + 4 * L.spheres.n + s];
+}
+
+struct PlaneRow {
+  V3 n, point, t, b;
+  float w, h;
+};
+
+__device__ __forceinline__ PlaneRow plane_row(const Launch& L, int j) {
+  const float* q = tables(L) + L.planes.at + PLANE_ROW * j;
+  const float4 a = ld4(q), b = ld4(q + 4), c = ld4(q + 8), e = ld4(q + 12);
+  PlaneRow p;
+  p.n = v3(a.x, a.y, a.z);
+  p.w = a.w;
+  p.point = v3(b.x, b.y, b.z);
+  p.h = b.w;
+  p.t = v3(c.x, c.y, c.z);
+  p.b = v3(e.x, e.y, e.z);
+  return p;
+}
+__device__ __forceinline__ int plane_mid(const Launch& L, int j) {
+  return (int)tables(L)[L.planes.at + PLANE_ROW * j + 11];
+}
+
+// Float4 q (0..4) of SDF row k.
+__device__ __forceinline__ float4 sdf_quad(const Launch& L, int k, int q) {
+  return ld4(tables(L) + L.sdfs.at + SDF_ROW * k + 4 * q);
+}
+
+__device__ __forceinline__ float material(const Launch& L, int i) {
+  return tables(L)[L.materials.at + i];
+}
+
+__device__ __forceinline__ float light(const Launch& L, int row, int col) {
+  return tables(L)[L.lights.at + LIGHT_COLS * row + col];
+}
+
+// Writes the expanded layout of the tables to `dst`, thread `tid` of
+// `threads` taking its share: the header, plane rows with their
+// construct_basis tangents, SDF rows with 1/scale, materials, lights, and
+// the spheres as float4 (c, r) rows and then their materials.
+template <bool NEE>
+__device__ __forceinline__ void expand(float* dst, const Launch& L, int tid, int threads) {
+  if (tid < 12) dst[tid] = __ldg(L.camera + tid);
+  if (tid == 12) dst[12] = (NEE && L.lights.n > 0) ? __ldg(L.clamp) : 0.0f;
+  for (int j = tid; j < L.planes.n; j += threads) {
+    const float* r = L.planes.rows + PLANE_COLS * j;
+    const V3 n = v3(__ldg(r), __ldg(r + 1), __ldg(r + 2));
+    const Basis bs = construct_basis(n);
+    float4* q = reinterpret_cast<float4*>(dst + L.planes.at + PLANE_ROW * j);
+    q[0] = make_float4(n.x, n.y, n.z, __ldg(r + 6));
+    q[1] = make_float4(__ldg(r + 3), __ldg(r + 4), __ldg(r + 5), __ldg(r + 7));
+    q[2] = make_float4(bs.t.x, bs.t.y, bs.t.z, __ldg(r + 8));
+    q[3] = make_float4(bs.b.x, bs.b.y, bs.b.z, 0.0f);
+  }
+  for (int k = tid; k < L.sdfs.n; k += threads) {
+    const float* r = L.sdfs.rows + SDF_COLS * k;
+    float* q = dst + L.sdfs.at + SDF_ROW * k;
+    for (int i = 0; i < SDF_COLS; ++i) q[i] = __ldg(r + i);
+    q[SDF_COLS] = __fdiv_rn(1.0f, __ldg(r + SDF_COLS - 1));
+  }
+  for (int i = tid; i < MATERIAL_COLS * L.materials.n; i += threads)
+    dst[L.materials.at + i] = __ldg(L.materials.rows + i);
+  for (int i = tid; i < LIGHT_COLS * L.lights.n; i += threads)
+    dst[L.lights.at + i] = __ldg(L.lights.rows + i);
+  for (int s = tid; s < L.spheres.n; s += threads) {
+    const float* r = L.spheres.rows + SPHERE_COLS * s;
+    reinterpret_cast<float4*>(dst + L.spheres.at)[s] =
+        make_float4(__ldg(r), __ldg(r + 1), __ldg(r + 2), __ldg(r + 3));
+    dst[L.spheres.at + 4 * L.spheres.n + s] = __ldg(r + 4);
+  }
+}
+
+// Stages the expanded layout in device memory (L.tables) for a launch whose
+// tables are larger than SMEM_CAP.
+template <bool NEE>
+__global__ void __launch_bounds__(BLOCK) stage_tables(const __grid_constant__ Launch L) {
+  expand<NEE>(const_cast<float*>(L.tables), L, blockIdx.x * BLOCK + threadIdx.x, gridDim.x * BLOCK);
+}
+
+// ---- the block's share of the launch's rays ---------------------------------
+
+// The block's current range of rays, (next << 32) | end, and whether the
+// launch's rays are all claimed.
+__shared__ unsigned long long block_range;
+__shared__ int block_done;
+
+constexpr unsigned long long EXHAUSTED = 0x8000000000000000ull;  // next 2^31 > end 0
+
+// Claims CHUNK rays from the launch's counter, of which the caller keeps
+// the first `keep` (at most the range): sets the block's range to the rest,
+// or marks the block done when nothing is left after them. Returns the
+// range's first index and sets `kept`.
+__device__ __forceinline__ unsigned claim(const Launch& L, unsigned keep, unsigned& kept) {
+  const unsigned g = atomicAdd(L.counter, CHUNK);
+  const unsigned end = g < L.n_rays ? min(g + CHUNK, L.n_rays) : g;
+  kept = min(keep, end - g);
+  if (g + kept >= end) {
+    // Nothing is left in this range, and a range shorter than CHUNK is the
+    // launch's last: no later claim gets a ray.
+    atomicExch(&block_range, EXHAUSTED);
+    *(volatile int*)&block_done = 1;
+  } else {
+    atomicExch(&block_range, ((unsigned long long)(g + kept) << 32) | end);
+  }
+  return g;
+}
+
+// Up to `want` rays for the calling warp, as two runs of consecutive
+// indices: (x, y) = (first, count) from the block's range and (z, w) from a
+// range claimed when this warp took the last ray of the block's. Both
+// counts are 0 while another warp claims the next range, and once the
+// launch's rays are all taken. One atomic on shared memory per call; every
+// index in a range goes to exactly one warp.
+__device__ __forceinline__ uint4 take(const Launch& L, unsigned want) {
+  const unsigned long long old = atomicAdd(&block_range, (unsigned long long)want << 32);
+  const unsigned next = (unsigned)(old >> 32), end = (unsigned)old;
+  uint4 r = make_uint4(next, 0u, 0u, 0u);
+  if (next >= end) return r;
+  r.y = min(want, end - next);
+  if (next + want < end) return r;
+  r.z = claim(L, want - r.y, r.w);
+  return r;
 }
 
 // ---- ops/threefry.py ------------------------------------------------------
@@ -242,19 +463,18 @@ __device__ __forceinline__ void sobol_pair(uint32_t seed, uint32_t sample, uint3
   u1 = to_unit_float(owen_scramble(d1, g2));
 }
 
-// One ray's draw state: Threefry keys and counters, or the Sobol pixel seed.
+// One ray's draw keys: its pixel and sample, and the Sobol pixel seed.
 struct Draws {
-  uint32_t k0, k1, pixel, sample, seed;
-  int bits;
+  uint32_t pixel, sample, seed;
 };
 
 template <bool SOBOL>
-__device__ __forceinline__ void draw_pair(const Draws& s, uint32_t stream, uint32_t pair, float& u0,
-                                          float& u1) {
+__device__ __forceinline__ void draw_pair(const Launch& L, const Draws& s, uint32_t stream,
+                                          uint32_t pair, float& u0, float& u1) {
   if constexpr (SOBOL) {
-    sobol_pair(s.seed, s.sample, stream, pair, s.bits, u0, u1);
+    sobol_pair(s.seed, s.sample, stream, pair, L.index_bits, u0, u1);
   } else {
-    pair_uniforms(s.k0, s.k1, s.pixel, s.sample, stream, pair, u0, u1);
+    pair_uniforms(L.k0, L.k1, s.pixel, s.sample, stream, pair, u0, u1);
   }
 }
 
@@ -283,10 +503,9 @@ __device__ __forceinline__ RayPre ray_pre(V3 o, V3 d) {
 
 // geometry.py::sphere_candidate_t: the nearest root at or beyond tmin, or
 // +inf where there is none, so a plain `<` against it takes only hits.
-__device__ __forceinline__ float sphere_t(const float* __restrict__ sp, V3 o, V3 d,
-                                          const RayPre& pre) {
-  V3 rel = o - v3(__ldg(sp), __ldg(sp + 1), __ldg(sp + 2));
-  float r = __ldg(sp + 3);
+__device__ __forceinline__ float sphere_t(float4 sp, V3 o, V3 d, const RayPre& pre) {
+  V3 rel = o - v3(sp.x, sp.y, sp.z);
+  float r = sp.w;
   float b = dot(rel, d);
   float c = mag2(rel);
   float u = 2.0f * b / pre.a;
@@ -303,15 +522,12 @@ __device__ __forceinline__ float sphere_t(const float* __restrict__ sp, V3 o, V3
   return valid ? t : INFINITY;
 }
 
-// geometry.py::plane_candidate: t (+inf on a miss), the point at t and the
-// plane's normal.
-__device__ __forceinline__ float plane_t(const float* __restrict__ pl, V3 o, V3 d,
-                                         const RayPre& pre, V3& p, V3& normal) {
-  normal = v3(__ldg(pl), __ldg(pl + 1), __ldg(pl + 2));
-  V3 point = v3(__ldg(pl + 3), __ldg(pl + 4), __ldg(pl + 5));
-  V3 diff = o - point;
-  float pa = -dot(diff, normal);
-  float pb = dot(d, normal);
+// geometry.py::plane_candidate: t (+inf on a miss) and the point at t.
+__device__ __forceinline__ float plane_t(const PlaneRow& pl, V3 o, V3 d, const RayPre& pre,
+                                         V3& p) {
+  V3 diff = o - pl.point;
+  float pa = -dot(diff, pl.n);
+  float pb = dot(d, pl.n);
   bool on_anchor = diff.x == 0.0f && diff.y == 0.0f && diff.z == 0.0f;
   bool b_zero = almost_zero(pb);
   bool parallel_miss = !on_anchor && b_zero;
@@ -319,17 +535,15 @@ __device__ __forceinline__ float plane_t(const float* __restrict__ pl, V3 o, V3 
   float t = b_zero ? 0.0f : pa / safe_b;
   bool backward = t < pre.tmin;
   p = o + d * t;
-  Basis bs = construct_basis(normal);
-  V3 in_plane = p - point;
-  bool outside = (fabsf(dot(in_plane, bs.t)) * 2.0f > __ldg(pl + 6)) ||
-                 (fabsf(dot(in_plane, bs.b)) * 2.0f > __ldg(pl + 7));
+  V3 in_plane = p - pl.point;
+  bool outside = (fabsf(dot(in_plane, pl.t)) * 2.0f > pl.w) ||
+                 (fabsf(dot(in_plane, pl.b)) * 2.0f > pl.h);
   const bool valid = !pre.deg && !parallel_miss && !backward && !outside;
   return valid ? t : INFINITY;
 }
 
 // ---- geometry.py: SDF primitives ------------------------------------------
 
-constexpr int SDF_COLS = 19;  // scene/compile.py: kind, c xyz, p0..p3, material, R (9), scale
 constexpr int SDF_KIND_SPHERE = 0, SDF_KIND_BOX = 1;
 constexpr int SPHERE_TRACE_STEPS = 128;
 constexpr float SDF_EPS = (float)1e-4;
@@ -355,57 +569,38 @@ __device__ __forceinline__ float row3_rn(float r0, float r1, float r2, V3 v) {
   return add_rn(add_rn(mul_rn(r0, v.x), mul_rn(r1, v.y)), mul_rn(r2, v.z));
 }
 
-// One SDF row, loaded once per scan.
-struct Sdf {
-  int kind;
-  V3 c;
-  float p0, p1, p2;
-  float r[9];  // world-to-local rotation, row-major
-  float scale, inv_scale;
-};
-
-__device__ __forceinline__ Sdf load_sdf(const float* __restrict__ sd) {
-  Sdf f;
-  f.kind = (int)__ldg(sd);
-  f.c = v3(__ldg(sd + 1), __ldg(sd + 2), __ldg(sd + 3));
-  f.p0 = __ldg(sd + 4);
-  f.p1 = __ldg(sd + 5);
-  f.p2 = __ldg(sd + 6);
-#pragma unroll
-  for (int i = 0; i < 9; ++i) f.r[i] = __ldg(sd + 9 + i);
-  f.scale = __ldg(sd + 18);
-  f.inv_scale = __fdiv_rn(1.0f, f.scale);
-  return f;
-}
-
-// geometry.py::sdf_distance of local point q, the kind's formula only.
-__device__ __forceinline__ float sdf_distance(const Sdf& f, V3 q) {
-  if (f.kind == SDF_KIND_SPHERE) {
-    return sub_rn(__fsqrt_rn(jmax(mag2_rn(q), FLOOR_20)), f.p0);
+// geometry.py::sdf_distance of local point q, the kind's formula only; p
+// holds the row's p0..p3.
+__device__ __forceinline__ float sdf_distance(int kind, float4 p, V3 q) {
+  if (kind == SDF_KIND_SPHERE) {
+    return sub_rn(__fsqrt_rn(jmax(mag2_rn(q), FLOOR_20)), p.x);
   }
-  if (f.kind == SDF_KIND_BOX) {
-    const float ax = sub_rn(fabsf(q.x), f.p0);
-    const float ay = sub_rn(fabsf(q.y), f.p1);
-    const float az = sub_rn(fabsf(q.z), f.p2);
+  if (kind == SDF_KIND_BOX) {
+    const float ax = sub_rn(fabsf(q.x), p.x);
+    const float ay = sub_rn(fabsf(q.y), p.y);
+    const float az = sub_rn(fabsf(q.z), p.z);
     const float mx = jmax(ax, 0.0f), my = jmax(ay, 0.0f), mz = jmax(az, 0.0f);
     const float outside = __fsqrt_rn(add_rn(add_rn(mul_rn(mx, mx), mul_rn(my, my)), mul_rn(mz, mz)));
     const float inside = jmin(jmax(ax, jmax(ay, az)), 0.0f);
     return add_rn(outside, inside);
   }
   // torus about the local y axis
-  const float ring = sub_rn(__fsqrt_rn(jmax(add_rn(mul_rn(q.x, q.x), mul_rn(q.z, q.z)), FLOOR_20)), f.p0);
-  return sub_rn(__fsqrt_rn(jmax(add_rn(mul_rn(ring, ring), mul_rn(q.y, q.y)), FLOOR_20)), f.p1);
+  const float ring = sub_rn(__fsqrt_rn(jmax(add_rn(mul_rn(q.x, q.x), mul_rn(q.z, q.z)), FLOOR_20)), p.x);
+  return sub_rn(__fsqrt_rn(jmax(add_rn(mul_rn(ring, ring), mul_rn(q.y, q.y)), FLOOR_20)), p.y);
 }
 
-// World point relative to the center -> object frame: R w, then * (1 / s).
-__device__ __forceinline__ V3 sdf_to_local(const Sdf& f, V3 w) {
-  return v3(mul_rn(row3_rn(f.r[0], f.r[1], f.r[2], w), f.inv_scale),
-            mul_rn(row3_rn(f.r[3], f.r[4], f.r[5], w), f.inv_scale),
-            mul_rn(row3_rn(f.r[6], f.r[7], f.r[8], w), f.inv_scale));
+// World point p of SDF row k -> object frame: R (p - c), then * (1 / s).
+__device__ __forceinline__ V3 sdf_to_local(const Launch& L, int k, V3 p) {
+  const float4 q0 = sdf_quad(L, k, 0), q2 = sdf_quad(L, k, 2), q3 = sdf_quad(L, k, 3),
+               q4 = sdf_quad(L, k, 4);
+  const V3 w = sub_rn(p, v3(q0.y, q0.z, q0.w));
+  return v3(mul_rn(row3_rn(q2.y, q2.z, q2.w, w), q4.w), mul_rn(row3_rn(q3.x, q3.y, q3.z, w), q4.w),
+            mul_rn(row3_rn(q3.w, q4.x, q4.y, w), q4.w));
 }
 
-__device__ __forceinline__ float sdf_world_dist(const Sdf& f, V3 p) {
-  return mul_rn(sdf_distance(f, sdf_to_local(f, sub_rn(p, f.c))), f.scale);
+// The distance of world point p to SDF row k, in world units.
+__device__ __forceinline__ float sdf_world_dist(const Launch& L, int k, int kind, V3 p) {
+  return mul_rn(sdf_distance(kind, sdf_quad(L, k, 1), sdf_to_local(L, k, p)), sdf_quad(L, k, 4).z);
 }
 
 __device__ __forceinline__ float sdf_eps(float t) { return mul_rn(SDF_EPS, jmax(1.0f, t)); }
@@ -428,15 +623,28 @@ __device__ __forceinline__ SdfRay sdf_ray(V3 o, V3 d) {
   return r;
 }
 
-// geometry.py::sdf_candidate's march: the world-unit t at which the march
-// stops, and whether it is a hit. A thread leaves at convergence or
-// escape; the TPU's frozen lanes kept exactly this t.
-__device__ __forceinline__ float sdf_march(const Sdf& f, V3 o, const SdfRay& r, bool& valid) {
+// geometry.py::sdf_candidate's march, stopped once it reaches `limit`, a t
+// in the ray's own parameterization: the world-unit t at which it stops,
+// and whether that is a hit. A thread leaves at convergence or escape; the
+// TPU's frozen lanes kept exactly this t.
+//
+// The stop is exact. The caller takes a hit only at a t_world whose
+// __fdiv_rn(t_world, |d|) is below `limit` (`best_t > t`, `t < t_max`).
+// lim_w = limit * |d| rounded up is at least the exact product, so any
+// t_world >= lim_w has t_world / |d| >= limit exactly and, __fdiv_rn being
+// monotone, a rounded quotient >= limit: no use. t rises strictly at every
+// step (by at least 0.5 eps > 0), so a march stopped at its first t >=
+// lim_w could only have ended at such a t; a march that ends below lim_w
+// ends where the full march does.
+__device__ __forceinline__ float sdf_march(const Launch& L, int k, int kind, V3 o,
+                                           const SdfRay& r, float limit, bool& valid) {
+  const float lim_w = __fmul_ru(limit, r.dlen);
   float t = 0.0f;
   bool hit = false;
   int i = 0;
   for (; i < SPHERE_TRACE_STEPS; ++i) {
-    const float dist = sdf_world_dist(f, ray_at_rn(o, r.dn, t));
+    if (t >= lim_w) break;
+    const float dist = sdf_world_dist(L, k, kind, ray_at_rn(o, r.dn, t));
     const float eps = sdf_eps(t);
     if (fabsf(dist) < eps) {
       hit = true;
@@ -445,21 +653,24 @@ __device__ __forceinline__ float sdf_march(const Sdf& f, V3 o, const SdfRay& r, 
     if (t > SDF_MAX_T) break;
     t = add_rn(t, jmax(dist, mul_rn(0.5f, eps)));
   }
-  if (i == SPHERE_TRACE_STEPS) hit = fabsf(sdf_world_dist(f, ray_at_rn(o, r.dn, t))) < sdf_eps(t);
+  if (i == SPHERE_TRACE_STEPS && t < lim_w)
+    hit = fabsf(sdf_world_dist(L, k, kind, ray_at_rn(o, r.dn, t))) < sdf_eps(t);
   valid = hit && !r.deg && t > r.lim && t <= SDF_MAX_T;
   return t;
 }
 
-// geometry.py::sdf_normal at the world point p, the march stopped at t:
-// the 4-tap tetrahedron gradient in the object frame (spacing eps / s),
-// normalized, rotated back to world.
-__device__ V3 sdf_normal(const Sdf& f, V3 p, float t) {
-  const float h = __fdiv_rn(sdf_eps(t), f.scale);
-  const V3 q = sdf_to_local(f, sub_rn(p, f.c));
-  const float t0 = sdf_distance(f, v3(add_rn(q.x, h), sub_rn(q.y, h), sub_rn(q.z, h)));
-  const float t1 = sdf_distance(f, v3(sub_rn(q.x, h), sub_rn(q.y, h), add_rn(q.z, h)));
-  const float t2 = sdf_distance(f, v3(sub_rn(q.x, h), add_rn(q.y, h), sub_rn(q.z, h)));
-  const float t3 = sdf_distance(f, v3(add_rn(q.x, h), add_rn(q.y, h), add_rn(q.z, h)));
+// geometry.py::sdf_normal at the world point p of SDF row k, the march
+// stopped at t: the 4-tap tetrahedron gradient in the object frame (spacing
+// eps / s), normalized, rotated back to world.
+__device__ __forceinline__ V3 sdf_normal(const Launch& L, int k, int kind, V3 p, float t) {
+  const float4 prm = sdf_quad(L, k, 1), q2 = sdf_quad(L, k, 2), q3 = sdf_quad(L, k, 3),
+               q4 = sdf_quad(L, k, 4);
+  const float h = __fdiv_rn(sdf_eps(t), q4.z);
+  const V3 q = sdf_to_local(L, k, p);
+  const float t0 = sdf_distance(kind, prm, v3(add_rn(q.x, h), sub_rn(q.y, h), sub_rn(q.z, h)));
+  const float t1 = sdf_distance(kind, prm, v3(sub_rn(q.x, h), sub_rn(q.y, h), add_rn(q.z, h)));
+  const float t2 = sdf_distance(kind, prm, v3(sub_rn(q.x, h), add_rn(q.y, h), sub_rn(q.z, h)));
+  const float t3 = sdf_distance(kind, prm, v3(add_rn(q.x, h), add_rn(q.y, h), add_rn(q.z, h)));
   V3 g = v3(add_rn(sub_rn(sub_rn(t0, t1), t2), t3), add_rn(add_rn(sub_rn(-t0, t1), t2), t3),
             add_rn(sub_rn(add_rn(-t0, t1), t2), t3));
   // math/vec.py normalize, rounded as torch rounds it.
@@ -467,107 +678,107 @@ __device__ V3 sdf_normal(const Sdf& f, V3 p, float t) {
   const bool zero = m2 < RAY_EPSILON2;
   const float s = zero ? 0.0f : __fdiv_rn(1.0f, __fsqrt_rn(zero ? 1.0f : m2));
   g = v3(mul_rn(g.x, s), mul_rn(g.y, s), mul_rn(g.z, s));
-  // R^T g
-  return v3(row3_rn(f.r[0], f.r[3], f.r[6], g), row3_rn(f.r[1], f.r[4], f.r[7], g),
-            row3_rn(f.r[2], f.r[5], f.r[8], g));
+  // R^T g, R = (R0 R1 R2; R3 R4 R5; R6 R7 R8)
+  return v3(row3_rn(q2.y, q3.x, q3.w, g), row3_rn(q2.z, q3.y, q4.x, g),
+            row3_rn(q2.w, q3.z, q4.y, g));
 }
 
 struct Hit {
   float t;
   V3 p, n;
   int mid;
-  int prim;  // sphere i -> i, plane j -> n_spheres + j, miss -> -1
+  int prim;  // sphere i -> i, plane j -> n_spheres + j, SDF or miss -> -1
   bool hit;
 };
 
-// pallas_integrator.py::_intersect_const over table operands: a t-only
-// sphere scan, one fetch of the winning sphere, the planes, then (SDF) the
-// SDF marches. Updates are on a strict best_t > t, so the first object wins
-// a tie, a sphere wins a tie against a plane and a plane against an SDF.
+// pallas_integrator.py::_intersect_const over the tables: a t-only sphere
+// scan, the planes, then (SDF) the SDF marches, each stopped at the best t
+// so far. Updates are on a strict best_t > t, so the first object wins a
+// tie, a sphere wins a tie against a plane and a plane against an SDF. The
+// scans carry only the best t and the winner; its point, normal and
+// material are taken once, after them, by the same expressions.
 template <bool SDF>
-__device__ Hit intersect(const float* __restrict__ spheres, int n_spheres,
-                         const float* __restrict__ planes, int n_planes,
-                         const float* __restrict__ sdfs, int n_sdfs, V3 o, V3 d) {
+__device__ __forceinline__ Hit intersect(const Launch& L, V3 o, V3 d) {
   const RayPre pre = ray_pre(o, d);
+  const int n_sp = L.spheres.n + L.planes.n;  // an SDF k wins as n_sp + k
 
-  float s_best_t = INFINITY;
-  int s_best = -1;
-  for (int s = 0; s < n_spheres; ++s) {
-    const float t = sphere_t(spheres + 5 * s, o, d, pre);
-    if (s_best_t > t) {
-      s_best_t = t;
-      s_best = s;
+  float best_t = INFINITY;
+  int best = -1;
+  for (int s = 0; s < L.spheres.n; ++s) {
+    const float t = sphere_t(sphere_cr(L, s), o, d, pre);
+    if (best_t > t) {
+      best_t = t;
+      best = s;
+    }
+  }
+  for (int j = 0; j < L.planes.n; ++j) {
+    V3 p;
+    const float t = plane_t(plane_row(L, j), o, d, pre, p);
+    if (best_t > t) {
+      best_t = t;
+      best = L.spheres.n + j;
+    }
+  }
+  SdfRay r;
+  float best_tw = 0.0f;  // the winning SDF's march t, in world units
+  if constexpr (SDF) {
+    r = sdf_ray(o, d);
+    // A degenerate ray never hits an SDF: skip its marches.
+    for (int k = 0; k < L.sdfs.n && !r.deg; ++k) {
+      bool valid;
+      const float tw = sdf_march(L, k, (int)sdf_quad(L, k, 0).x, o, r, best_t, valid);
+      const float t = valid ? __fdiv_rn(tw, r.dlen) : INFINITY;
+      if (best_t > t) {
+        best_t = t;
+        best = n_sp + k;
+        best_tw = tw;
+      }
     }
   }
 
   Hit h;
-  h.t = s_best_t;
-  h.hit = s_best >= 0;
-  h.prim = s_best;
+  h.t = best_t;
+  h.hit = best >= 0;
+  h.prim = best < n_sp ? best : -1;  // an SDF is not light-sampled: MIS weight 1
   h.p = v3(0.0f, 0.0f, 0.0f);
   h.n = v3(0.0f, 0.0f, 0.0f);
   h.mid = 0;
-  if (h.hit) {
-    const float* sp = spheres + 5 * s_best;
-    V3 p = o + d * s_best_t;
-    h.p = p;
-    h.n = normalize(p - v3(__ldg(sp), __ldg(sp + 1), __ldg(sp + 2)));
-    h.mid = (int)__ldg(sp + 4);
-  }
-
-  for (int j = 0; j < n_planes; ++j) {
-    const float* pl = planes + 9 * j;
-    V3 p, normal;
-    const float t = plane_t(pl, o, d, pre, p, normal);
-    if (h.t > t) {
-      h.t = t;
-      h.hit = true;
-      h.p = p;
-      h.n = normal;
-      h.mid = (int)__ldg(pl + 8);
-      h.prim = n_spheres + j;
-    }
-  }
-
-  if constexpr (SDF) {
-    const SdfRay r = sdf_ray(o, d);
-    for (int k = 0; k < n_sdfs; ++k) {
-      const float* sd = sdfs + SDF_COLS * k;
-      const Sdf f = load_sdf(sd);
-      bool valid;
-      const float tw = sdf_march(f, o, r, valid);
-      const float t = valid ? __fdiv_rn(tw, r.dlen) : INFINITY;
-      if (h.t > t) {
-        h.t = t;
-        h.hit = true;
-        h.p = ray_at_rn(o, r.dn, tw);
-        h.n = sdf_normal(f, h.p, tw);
-        h.mid = (int)__ldg(sd + 8);
-        h.prim = -1;  // not light-sampled: MIS weight 1
-      }
-    }
+  if (best >= n_sp) {
+    const int k = best - n_sp;
+    h.p = ray_at_rn(o, r.dn, best_tw);
+    h.n = sdf_normal(L, k, (int)sdf_quad(L, k, 0).x, h.p, best_tw);
+    h.mid = (int)sdf_quad(L, k, 2).x;
+  } else if (best >= L.spheres.n) {
+    const int j = best - L.spheres.n;
+    h.p = o + d * best_t;
+    h.n = plane_row(L, j).n;
+    h.mid = plane_mid(L, j);
+  } else if (best >= 0) {
+    const float4 sp = sphere_cr(L, best);
+    h.p = o + d * best_t;
+    h.n = normalize(h.p - v3(sp.x, sp.y, sp.z));
+    h.mid = sphere_mid(L, best);
   }
   return h;
 }
 
-// pallas_integrator.py::_occluded_const: any hit closer than t_max.
+// pallas_integrator.py::_occluded_const: any hit closer than t_max; each
+// SDF march stops at t_max.
 template <bool SDF>
-__device__ bool occluded(const float* __restrict__ spheres, int n_spheres,
-                         const float* __restrict__ planes, int n_planes,
-                         const float* __restrict__ sdfs, int n_sdfs, V3 o, V3 d, float t_max) {
+__device__ __forceinline__ bool occluded(const Launch& L, V3 o, V3 d, float t_max) {
   const RayPre pre = ray_pre(o, d);
-  for (int s = 0; s < n_spheres; ++s) {
-    if (sphere_t(spheres + 5 * s, o, d, pre) < t_max) return true;
+  for (int s = 0; s < L.spheres.n; ++s) {
+    if (sphere_t(sphere_cr(L, s), o, d, pre) < t_max) return true;
   }
-  for (int j = 0; j < n_planes; ++j) {
-    V3 p, normal;
-    if (plane_t(planes + 9 * j, o, d, pre, p, normal) < t_max) return true;
+  for (int j = 0; j < L.planes.n; ++j) {
+    V3 p;
+    if (plane_t(plane_row(L, j), o, d, pre, p) < t_max) return true;
   }
   if constexpr (SDF) {
     const SdfRay r = sdf_ray(o, d);
-    for (int k = 0; k < n_sdfs; ++k) {
+    for (int k = 0; k < L.sdfs.n && !r.deg; ++k) {
       bool valid;
-      const float tw = sdf_march(load_sdf(sdfs + SDF_COLS * k), o, r, valid);
+      const float tw = sdf_march(L, k, (int)sdf_quad(L, k, 0).x, o, r, t_max, valid);
       if (valid && __fdiv_rn(tw, r.dlen) < t_max) return true;
     }
   }
@@ -581,14 +792,14 @@ struct Material {
   float roughness, ior;
 };
 
-__device__ __forceinline__ Material load_material(const float* __restrict__ materials, int mid) {
-  const float* m = materials + 11 * mid;
+__device__ __forceinline__ Material load_material(const Launch& L, int mid) {
+  const int m = MATERIAL_COLS * mid;
   Material mp;
-  mp.albedo = v3(__ldg(m), __ldg(m + 1), __ldg(m + 2));
-  mp.emission = v3(__ldg(m + 3), __ldg(m + 4), __ldg(m + 5));
-  mp.tint = v3(__ldg(m + 6), __ldg(m + 7), __ldg(m + 8));
-  mp.roughness = __ldg(m + 9);
-  mp.ior = __ldg(m + 10);
+  mp.albedo = v3(material(L, m), material(L, m + 1), material(L, m + 2));
+  mp.emission = v3(material(L, m + 3), material(L, m + 4), material(L, m + 5));
+  mp.tint = v3(material(L, m + 6), material(L, m + 7), material(L, m + 8));
+  mp.roughness = material(L, m + 9);
+  mp.ior = material(L, m + 10);
   return mp;
 }
 
@@ -615,7 +826,7 @@ __device__ __forceinline__ float schlick(float cos_theta, float n1, float n2) {
   return r0 + (1.0f - r0) * (m2 * m2 * m);
 }
 
-__device__ V3 glossy_eval(V3 wi, V3 wo, V3 n, V3 tint, float alpha, float ior) {
+__device__ __forceinline__ V3 glossy_eval(V3 wi, V3 wo, V3 n, V3 tint, float alpha, float ior) {
   float cos_o = jmax(0.0f, dot(wo, n));
   float cos_i = jmax(0.0f, dot(wi, n));
   bool dead = almost_zero(cos_o) || almost_zero(cos_i);
@@ -633,7 +844,7 @@ __device__ V3 glossy_eval(V3 wi, V3 wo, V3 n, V3 tint, float alpha, float ior) {
   return tint * scale;
 }
 
-__device__ float glossy_pdf(V3 wi, V3 wo, V3 n, float alpha) {
+__device__ __forceinline__ float glossy_pdf(V3 wi, V3 wo, V3 n, float alpha) {
   V3 h = normalize(wi + wo);
   float cos_h = jmax(0.0f, dot(h, n));
   float d = distribution_gtr2(cos_h, alpha);
@@ -646,7 +857,7 @@ __device__ float glossy_pdf(V3 wi, V3 wo, V3 n, float alpha) {
 }
 
 // Oren-Nayar with the reference's frame bug: cos(theta) is the world z.
-__device__ V3 oren_nayar_eval(V3 wi, V3 wo, V3 albedo, float sigma) {
+__device__ __forceinline__ V3 oren_nayar_eval(V3 wi, V3 wo, V3 albedo, float sigma) {
   float cos_i = wi.z;
   float cos_o = wo.z;
   float sin_i = sqrtf(jmax(1.0f - cos_i * cos_i, FLOOR_12));
@@ -666,7 +877,7 @@ __device__ V3 oren_nayar_eval(V3 wi, V3 wo, V3 albedo, float sigma) {
   return albedo * scale;
 }
 
-__device__ V3 layered_eval(V3 wi, V3 wo, V3 n, const Material& mp) {
+__device__ __forceinline__ V3 layered_eval(V3 wi, V3 wo, V3 n, const Material& mp) {
   float sigma = fabsf(0.5f * mp.roughness * mp.roughness);
   float alpha = mp.roughness * mp.roughness;
   V3 d_f = oren_nayar_eval(wi, wo, mp.albedo, sigma);
@@ -678,8 +889,9 @@ __device__ V3 layered_eval(V3 wi, V3 wo, V3 n, const Material& mp) {
 // materials.py::layered_sample. Only the chosen lobe's direction is
 // computed: the functions are pure, so this equals computing both and
 // selecting, as the TPU kernel did.
-__device__ void layered_sample(V3 wo, float x0, float x1, float x2, const Basis& bs,
-                               const Material& mp, V3& wi, float& pdf, V3& f) {
+__device__ __forceinline__ void layered_sample(V3 wo, float x0, float x1, float x2,
+                                               const Basis& bs, const Material& mp, V3& wi,
+                                               float& pdf, V3& f) {
   float alpha = mp.roughness * mp.roughness;
   if (x2 < 0.5f) {
     // rng.py::hemisphere_sample_basis(x0, x1): v = (cos(a) b, sin(a) b, x0).
@@ -714,10 +926,6 @@ __device__ __forceinline__ float layered_pdf_true(V3 wi, V3 wo, V3 n, const Mate
 
 // ---- next-event estimation (_make_kernel, mode "nee") ---------------------
 
-__device__ __forceinline__ float light(const float* __restrict__ lights, int row, int col) {
-  return __ldg(lights + LIGHT_COLS * row + col);
-}
-
 // integrator.py::nee_clamp_at_depth: base x (1/RR_BASE)^max(depth - 3, 0).
 __device__ __forceinline__ float clamp_at_depth(float base, int depth) {
   const int excess = depth > RR_YOUNG_DEPTH ? depth - RR_YOUNG_DEPTH : 0;
@@ -727,25 +935,23 @@ __device__ __forceinline__ float clamp_at_depth(float base, int depth) {
 // The density with which light sampling picks the emitter a BSDF-sampled
 // ray from o along d hit at distance t (prim), 0 off the table. The rows
 // are scanned as the JAX select chain is: the last row of that prim wins.
-__device__ float emission_pickup(const float* __restrict__ lights, int n_lights, V3 o, V3 d,
-                                 float t, int prim) {
+__device__ __forceinline__ float emission_pickup(const Launch& L, V3 o, V3 d, float t, int prim) {
   float p_light = 0.0f;
-  for (int r = 0; r < n_lights; ++r) {
-    if ((int)light(lights, r, COL_PRIM) != prim) continue;
-    const float pr = light(lights, r, COL_PROB);
-    const float g0 = light(lights, r, COL_G), g1 = light(lights, r, COL_G + 1),
-                g2 = light(lights, r, COL_G + 2);
-    if (light(lights, r, COL_KIND) < 0.5f) {
+  for (int r = 0; r < L.lights.n; ++r) {
+    if ((int)light(L, r, COL_PRIM) != prim) continue;
+    const float pr = light(L, r, COL_PROB);
+    const float g0 = light(L, r, COL_G), g1 = light(L, r, COL_G + 1), g2 = light(L, r, COL_G + 2);
+    if (light(L, r, COL_KIND) < 0.5f) {
       const float dx = g0 - o.x, dy = g1 - o.y, dz = g2 - o.z;
       const float d2 = dx * dx + dy * dy + dz * dz;
-      const float sin2max = jmin(jmax(light(lights, r, COL_R2) / jmax(d2, FLOOR_12), 0.0f), 1.0f);
+      const float sin2max = jmin(jmax(light(L, r, COL_R2) / jmax(d2, FLOOR_12), 0.0f), 1.0f);
       const float cos_max = sqrtf(jmax(1.0f - sin2max, 0.0f));
       const float cand = pr / (TWO_PI * jmax(1.0f - cos_max, FLOOR_9));
-      p_light = d2 > light(lights, r, COL_R2_EDGE) ? cand : 0.0f;
+      p_light = d2 > light(L, r, COL_R2_EDGE) ? cand : 0.0f;
     } else {
       // Area -> solid angle at the hit distance: pr t^2 / (A |cos|).
       const float cos_l = fabsf(d.x * g0 + d.y * g1 + d.z * g2);
-      p_light = pr * t * t / (light(lights, r, COL_AREA) * jmax(cos_l, FLOOR_6));
+      p_light = pr * t * t / (light(L, r, COL_AREA) * jmax(cos_l, FLOOR_6));
     }
   }
   return p_light;
@@ -760,18 +966,18 @@ struct LightSample {
 // Pick a row by the cumulative table (the last row whose predecessor's cum
 // is below u_sel) and sample a direction toward it from p: a uniform cone
 // for a sphere, a uniform point for a plane (two-sided).
-__device__ LightSample sample_light(const float* __restrict__ lights, int n_lights, V3 p,
-                                    float u_sel, float ul1, float ul2) {
+__device__ __forceinline__ LightSample sample_light(const Launch& L, V3 p, float u_sel, float ul1,
+                                                    float ul2) {
   int r = 0;
-  for (int i = 1; i < n_lights; ++i) r = u_sel > light(lights, i - 1, COL_CUM) ? i : r;
-  const float lpr = light(lights, r, COL_PROB);
+  for (int i = 1; i < L.lights.n; ++i) r = u_sel > light(L, i - 1, COL_CUM) ? i : r;
+  const float lpr = light(L, r, COL_PROB);
   float g[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) g[i] = light(lights, r, COL_G + i);
+  for (int i = 0; i < 8; ++i) g[i] = light(L, r, COL_G + i);
   LightSample ls;
-  ls.le = v3(light(lights, r, COL_LE), light(lights, r, COL_LE + 1), light(lights, r, COL_LE + 2));
+  ls.le = v3(light(L, r, COL_LE), light(L, r, COL_LE + 1), light(L, r, COL_LE + 2));
   float pdf;
-  if (light(lights, r, COL_KIND) < 0.5f) {
+  if (light(L, r, COL_KIND) < 0.5f) {
     const float lrad = g[3];
     const V3 to_c = v3(g[0] - p.x, g[1] - p.y, g[2] - p.z);
     const float d2 = to_c.x * to_c.x + to_c.y * to_c.y + to_c.z * to_c.z;
@@ -808,148 +1014,237 @@ __device__ LightSample sample_light(const float* __restrict__ lights, int n_ligh
 
 // ---- the kernel -----------------------------------------------------------
 
-// NEE: mode "nee" (else "path"); SOBOL: sampler "sobol" (else "uniform");
-// SDF: scan the n_sdfs rows of `sdfs` (else they are not read).
-// `lights` (n_lights rows) and `clamp` (the clamp base) are read in mode
-// "nee" only; n_lights = 0 means nothing emits: no light is sampled, and
-// emission is neither MIS-weighted nor clamped.
-template <bool NEE, bool SOBOL, bool SDF>
-__global__ void __launch_bounds__(BLOCK)
-megakernel(const float* __restrict__ camera, const float* __restrict__ spheres, int n_spheres,
-           const float* __restrict__ planes, int n_planes, const float* __restrict__ materials,
-           float* __restrict__ out, long long n_rays, uint32_t k0, uint32_t k1, uint32_t root,
-           int width, float inv_width, float inv_height, int spp_chunk, uint32_t sample_offset,
-           int max_depth, int index_bits, const float* __restrict__ lights, int n_lights,
-           const float* __restrict__ clamp, const float* __restrict__ sdfs, int n_sdfs) {
-  const long long k = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  if (k >= n_rays) return;
-  // Ray k is (pixel k / spp, sample offset + k % spp).
+// One path in flight in a lane.
+struct Path {
+  unsigned k;  // ray index: (pixel k / spp, sample offset + k % spp)
   Draws s;
-  s.k0 = k0;
-  s.k1 = k1;
-  s.pixel = (uint32_t)(k / spp_chunk);
-  s.sample = sample_offset + (uint32_t)(k % spp_chunk);
-  s.seed = hash32(s.pixel ^ root);  // the per-pixel Sobol seed
-  s.bits = index_bits;
+  V3 o, d, tput, rad;
+  float prev_pdf;  // the previous vertex's true BSDF density (MIS)
+  int depth;
+};
 
-  // Camera jitter (stream 0, pair 0) and generate_rays.
+// Camera jitter (stream 0, pair 0) and generate_rays for ray k.
+template <bool SOBOL>
+__device__ __forceinline__ void start_path(const Launch& L, unsigned k, Path& P) {
+  P.k = k;
+  P.s.pixel = k / L.spp_chunk;
+  P.s.sample = L.sample_offset + k % L.spp_chunk;
+  P.s.seed = hash32(P.s.pixel ^ L.root);  // the per-pixel Sobol seed
   float u0, u1;
-  draw_pair<SOBOL>(s, 0u, 0u, u0, u1);
-  const float fi = (float)(s.pixel % (uint32_t)width);
-  const float fj = (float)(s.pixel / (uint32_t)width);
-  const float x = (fi + u0) * inv_width;
-  const float y = (fj + u1) * inv_height;
-  const V3 eye = v3(__ldg(camera), __ldg(camera + 1), __ldg(camera + 2));
-  const V3 corner = v3(__ldg(camera + 3), __ldg(camera + 4), __ldg(camera + 5));
-  const V3 cu = v3(__ldg(camera + 6), __ldg(camera + 7), __ldg(camera + 8));
-  const V3 cv = v3(__ldg(camera + 9), __ldg(camera + 10), __ldg(camera + 11));
-  V3 d = v3(corner.x + x * cu.x + y * cv.x, corner.y + x * cu.y + y * cv.y,
-            corner.z + x * cu.z + y * cv.z);
-  d = d * (1.0f / sqrtf(mag2(d)));
-  V3 o = eye;
+  draw_pair<SOBOL>(L, P.s, 0u, 0u, u0, u1);
+  const float fi = (float)(P.s.pixel % (uint32_t)L.width);
+  const float fj = (float)(P.s.pixel / (uint32_t)L.width);
+  const float x = (fi + u0) * L.inv_width;
+  const float y = (fj + u1) * L.inv_height;
+  const float* cam = tables(L);  // eye, corner, u, v
+  V3 d = v3(cam[3] + x * cam[6] + y * cam[9], cam[4] + x * cam[7] + y * cam[10],
+            cam[5] + x * cam[8] + y * cam[11]);
+  P.d = d * (1.0f / sqrtf(mag2(d)));
+  P.o = v3(cam[0], cam[1], cam[2]);
+  P.tput = v3(1.0f, 1.0f, 1.0f);
+  P.rad = v3(0.0f, 0.0f, 0.0f);
+  P.prev_pdf = 1.0f;
+  P.depth = 0;
+}
 
-  const bool sample_lights = NEE && n_lights > 0;
-  const float clamp_base = sample_lights ? __ldg(clamp) : 0.0f;
-  V3 tput = v3(1.0f, 1.0f, 1.0f);
-  V3 rad = v3(0.0f, 0.0f, 0.0f);
-  float prev_pdf = 1.0f;  // the previous vertex's true BSDF density (MIS)
-  for (int depth = 0; depth < max_depth; ++depth) {
-    const Hit h = intersect<SDF>(spheres, n_spheres, planes, n_planes, sdfs, n_sdfs, o, d);
-    if (!h.hit) break;  // a miss ends the path: nothing further is added
-    const Material mp = load_material(materials, h.mid);
-    V3 contrib = tput * mp.emission;
-    if (sample_lights && depth > 0) {
-      // MIS against light sampling, and the depth-aware clamp; the camera's
-      // own sighting of an emitter (depth 0) is neither.
-      const float p_light = emission_pickup(lights, n_lights, o, d, h.t, h.prim);
-      const float w = prev_pdf / jmax(prev_pdf + p_light, FLOOR_12);
-      const float cl = clamp_at_depth(clamp_base, depth);
-      contrib = v3(jmin(contrib.x * w, cl), jmin(contrib.y * w, cl), jmin(contrib.z * w, cl));
+__device__ __forceinline__ void finish_path(const Launch& L, const Path& P) {
+  float* out = L.out + 3ull * P.k;
+  out[0] = P.rad.x;
+  out[1] = P.rad.y;
+  out[2] = P.rad.z;
+}
+
+// One bounce of path P at P.depth; false once the path has ended.
+template <bool NEE, bool SOBOL, bool SDF>
+__device__ __forceinline__ bool bounce(const Launch& L, Path& P, float clamp_base) {
+  const bool sample_lights = NEE && L.lights.n > 0;
+  const Hit h = intersect<SDF>(L, P.o, P.d);
+  if (!h.hit) return false;  // a miss ends the path: nothing further is added
+  const Material mp = load_material(L, h.mid);
+  V3 contrib = P.tput * mp.emission;
+  if (sample_lights && P.depth > 0) {
+    // MIS against light sampling, and the depth-aware clamp; the camera's
+    // own sighting of an emitter (depth 0) is neither.
+    const float p_light = emission_pickup(L, P.o, P.d, h.t, h.prim);
+    const float w = P.prev_pdf / jmax(P.prev_pdf + p_light, FLOOR_12);
+    const float cl = clamp_at_depth(clamp_base, P.depth);
+    contrib = v3(jmin(contrib.x * w, cl), jmin(contrib.y * w, cl), jmin(contrib.z * w, cl));
+  }
+  P.rad = P.rad + contrib;
+
+  // Pair 0 = BSDF lobe (x0, x1); pair 1 = (x2 layer choice, RR); nee adds
+  // pair 2 = (light select, cone u1) and pair 3 = (cone u2, spare).
+  const uint32_t stream = (uint32_t)P.depth + 1u;
+  float x0, x1, x2, u_rr;
+  draw_pair<SOBOL>(L, P.s, stream, 0u, x0, x1);
+  draw_pair<SOBOL>(L, P.s, stream, 1u, x2, u_rr);
+  const V3 wo = -P.d;
+
+  if (sample_lights) {
+    float u_sel, ul1, ul2, spare;
+    draw_pair<SOBOL>(L, P.s, stream, 2u, u_sel, ul1);
+    draw_pair<SOBOL>(L, P.s, stream, 3u, ul2, spare);
+    const LightSample ls = sample_light(L, h.p, u_sel, ul1, ul2);
+    const float cos_surf = dot(ls.wi, h.n);
+    // The light's contribution before the RR decision, as in the JAX
+    // kernel; the shadow ray only where it can be non-zero.
+    if (ls.valid && cos_surf > 0.0f &&
+        !occluded<SDF>(L, h.p + ls.wi * BOUNCE_EPSILON, ls.wi, ls.t * SHADOW_SCALE)) {
+      const V3 f_l = layered_eval(ls.wi, wo, h.n, mp);
+      const float p_bsdf = layered_pdf_true(ls.wi, wo, h.n, mp);
+      const float mis = ls.pdf / jmax(ls.pdf + p_bsdf, FLOOR_12);
+      const float scale = mis * cos_surf / ls.pdf;
+      const float cl = clamp_at_depth(clamp_base, P.depth);
+      P.rad = P.rad + v3(jmin(P.tput.x * f_l.x * ls.le.x * scale, cl),
+                         jmin(P.tput.y * f_l.y * ls.le.y * scale, cl),
+                         jmin(P.tput.z * f_l.z * ls.le.z * scale, cl));
     }
-    rad = rad + contrib;
+  }
 
-    // Pair 0 = BSDF lobe (x0, x1); pair 1 = (x2 layer choice, RR); nee adds
-    // pair 2 = (light select, cone u1) and pair 3 = (cone u2, spare).
-    const uint32_t stream = (uint32_t)depth + 1u;
-    float x0, x1, x2, u_rr;
-    draw_pair<SOBOL>(s, stream, 0u, x0, x1);
-    draw_pair<SOBOL>(s, stream, 1u, x2, u_rr);
-    const V3 wo = -d;
+  // integrator.py::russian_roulette_probability
+  const float power = jmin(jmax(mag2(P.tput), RR_CLAMP_LO), RR_CLAMP_HI);
+  const float prob = P.depth < RR_YOUNG_DEPTH ? RR_YOUNG_SURVIVAL : RR_BASE * power;
+  if (!(u_rr <= prob)) return false;
 
-    if (sample_lights) {
-      float u_sel, ul1, ul2, spare;
-      draw_pair<SOBOL>(s, stream, 2u, u_sel, ul1);
-      draw_pair<SOBOL>(s, stream, 3u, ul2, spare);
-      const LightSample ls = sample_light(lights, n_lights, h.p, u_sel, ul1, ul2);
-      const float cos_surf = dot(ls.wi, h.n);
-      // The light's contribution before the RR decision, as in the JAX
-      // kernel; the shadow ray only where it can be non-zero.
-      if (ls.valid && cos_surf > 0.0f &&
-          !occluded<SDF>(spheres, n_spheres, planes, n_planes, sdfs, n_sdfs,
-                         h.p + ls.wi * BOUNCE_EPSILON, ls.wi, ls.t * SHADOW_SCALE)) {
-        const V3 f_l = layered_eval(ls.wi, wo, h.n, mp);
-        const float p_bsdf = layered_pdf_true(ls.wi, wo, h.n, mp);
-        const float mis = ls.pdf / jmax(ls.pdf + p_bsdf, FLOOR_12);
-        const float scale = mis * cos_surf / ls.pdf;
-        const float cl = clamp_at_depth(clamp_base, depth);
-        rad = rad + v3(jmin(tput.x * f_l.x * ls.le.x * scale, cl),
-                       jmin(tput.y * f_l.y * ls.le.y * scale, cl),
-                       jmin(tput.z * f_l.z * ls.le.z * scale, cl));
+  const Basis bs = construct_basis(h.n);
+  V3 wi, f;
+  float pdf;
+  layered_sample(wo, x0, x1, x2, bs, mp, wi, pdf, f);
+  if (NEE) pdf = layered_pdf_true(wi, wo, h.n, mp);
+  const float scale = fabsf(dot(wi, h.n)) / (pdf * prob);
+  P.tput = P.tput * f * scale;
+  P.o = h.p + wi * BOUNCE_EPSILON;
+  P.d = wi;  // zero after a glossy sample below the surface: the next hit misses
+  P.prev_pdf = pdf;
+  return ++P.depth < L.max_depth;
+}
+
+// NEE: mode "nee" (else "path"); SOBOL: sampler "sobol" (else "uniform");
+// SDF: scan the SDF rows (else they are not read). The lights and the clamp
+// base are read in mode "nee" only; no light rows means nothing emits: no
+// light is sampled, and emission is neither MIS-weighted nor clamped.
+//
+// Persistent: each block stages the tables, then its lanes take rays from
+// the block's range until the launch's rays are all taken. A lane whose
+// path ends writes its radiance and takes a new ray at the next iteration.
+template <bool NEE, bool SOBOL, bool SDF>
+__global__ void __launch_bounds__(BLOCK, MinBlocks<NEE, SOBOL, SDF>::value) megakernel(const __grid_constant__ Launch L) {
+  if (L.tables == nullptr) expand<NEE>(cornelis_smem, L, threadIdx.x, BLOCK);
+  if (threadIdx.x == 0) {
+    unsigned kept;
+    block_done = 0;
+    claim(L, 0u, kept);
+  }
+  __syncthreads();
+  const float clamp_base = tables(L)[12];
+  const unsigned lane = threadIdx.x & 31u;
+
+  Path P;
+  bool alive = false, finished = false;
+  for (;;) {
+    const unsigned idle = __ballot_sync(FULL, !alive && !finished);
+    if (idle) {
+      const int leader = __ffs(idle) - 1;
+      uint4 got = make_uint4(0u, 0u, 0u, 0u);
+      if ((int)lane == leader) got = take(L, __popc(idle));
+      got.x = __shfl_sync(FULL, got.x, leader);
+      got.y = __shfl_sync(FULL, got.y, leader);
+      got.z = __shfl_sync(FULL, got.z, leader);
+      got.w = __shfl_sync(FULL, got.w, leader);
+      if (!alive && !finished) {
+        const unsigned rank = __popc(idle & ((1u << lane) - 1u));
+        if (rank < got.y + got.w) {
+          start_path<SOBOL>(L, rank < got.y ? got.x + rank : got.z + (rank - got.y), P);
+          alive = L.max_depth > 0;
+          if (!alive) finish_path(L, P);
+        } else if (*(volatile int*)&block_done) {
+          finished = true;
+        }
       }
     }
-
-    // integrator.py::russian_roulette_probability
-    const float power = jmin(jmax(mag2(tput), RR_CLAMP_LO), RR_CLAMP_HI);
-    const float prob = depth < RR_YOUNG_DEPTH ? RR_YOUNG_SURVIVAL : RR_BASE * power;
-    if (!(u_rr <= prob)) break;
-
-    const Basis bs = construct_basis(h.n);
-    V3 wi, f;
-    float pdf;
-    layered_sample(wo, x0, x1, x2, bs, mp, wi, pdf, f);
-    if (NEE) pdf = layered_pdf_true(wi, wo, h.n, mp);
-    const float scale = fabsf(dot(wi, h.n)) / (pdf * prob);
-    tput = tput * f * scale;
-    o = h.p + wi * BOUNCE_EPSILON;
-    d = wi;  // zero after a glossy sample below the surface: the next hit misses
-    prev_pdf = pdf;
+    if (__all_sync(FULL, finished)) break;
+    if (!alive) continue;
+    if (!bounce<NEE, SOBOL, SDF>(L, P, clamp_base)) {
+      finish_path(L, P);
+      alive = false;
+    }
   }
-  out[3 * k + 0] = rad.x;
-  out[3 * k + 1] = rad.y;
-  out[3 * k + 2] = rad.z;
 }
 
+// Lays the tables out: the header, then planes, SDFs, materials, lights and
+// spheres, each at a 16-byte boundary. Returns the layout's bytes.
+int layout(Launch& L) {
+  int at = HEADER;
+  auto put = [&at](Table& t, int floats) {
+    t.at = at;
+    at += (floats + 3) & ~3;
+  };
+  put(L.planes, PLANE_ROW * L.planes.n);
+  put(L.sdfs, SDF_ROW * L.sdfs.n);
+  put(L.materials, MATERIAL_COLS * L.materials.n);
+  put(L.lights, LIGHT_COLS * L.lights.n);
+  put(L.spheres, SPHERE_COLS * L.spheres.n);
+  return 4 * at;
+}
+
+// Zeroes the launch's counter and launches one wave of persistent blocks
+// (SMs x the blocks an SM holds, or fewer for a small launch) on `stream`,
+// with the tables in each block's shared memory, or, past SMEM_CAP, staged
+// once in device memory allocated and freed on `stream`.
 template <bool NEE, bool SOBOL, bool SDF>
-int launch(const float* camera, const float* spheres, int n_spheres, const float* planes,
-           int n_planes, const float* materials, const float* sdfs, int n_sdfs, float* out,
-           long long n_rays, uint32_t k0, uint32_t k1, uint32_t root, int width, float inv_width,
-           float inv_height, int spp_chunk, uint32_t sample_offset, int max_depth, int index_bits,
-           const float* lights, int n_lights, const float* clamp, cudaStream_t stream) {
-  const long long blocks = (n_rays + BLOCK - 1) / BLOCK;
-  megakernel<NEE, SOBOL, SDF><<<(unsigned int)blocks, BLOCK, 0, stream>>>(
-      camera, spheres, n_spheres, planes, n_planes, materials, out, n_rays, k0, k1, root, width,
-      inv_width, inv_height, spp_chunk, sample_offset, max_depth, index_bits, lights, n_lights,
-      clamp, sdfs, n_sdfs);
-  return (int)cudaGetLastError();
+int launch(Launch L, cudaStream_t stream) {
+  const auto kernel = megakernel<NEE, SOBOL, SDF>;  // for the attribute and occupancy calls
+  const int bytes = layout(L);
+  const int smem = bytes <= SMEM_CAP ? bytes : 0;
+  cudaError_t err = cudaSuccess;
+  if (smem > SMEM_DEFAULT)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int device = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK, smem);
+  if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
+  if (err == cudaSuccess) err = cudaMemsetAsync(L.counter, 0, sizeof(unsigned), stream);
+  float* staged = nullptr;
+  if (err == cudaSuccess && smem == 0) {
+    err = cudaMallocAsync((void**)&staged, bytes, stream);
+    if (err == cudaSuccess) {
+      L.tables = staged;
+      int items = L.spheres.n > L.planes.n + L.sdfs.n ? L.spheres.n : L.planes.n + L.sdfs.n;
+      items = items > MATERIAL_COLS * L.materials.n ? items : MATERIAL_COLS * L.materials.n;
+      items = items > LIGHT_COLS * L.lights.n ? items : LIGHT_COLS * L.lights.n;
+      stage_tables<NEE><<<(items + BLOCK - 1) / BLOCK + 1, BLOCK, 0, stream>>>(L);
+      err = cudaGetLastError();
+    }
+  }
+  if (err == cudaSuccess) {
+    const unsigned wave = (unsigned)(sms * per_sm);
+    const unsigned needed = (L.n_rays + CHUNK - 1) / CHUNK;
+    megakernel<NEE, SOBOL, SDF><<<needed < wave ? needed : wave, BLOCK, smem, stream>>>(L);
+    err = cudaGetLastError();
+  }
+  if (staged != nullptr) {
+    const cudaError_t freed = cudaFreeAsync(staged, stream);
+    if (err == cudaSuccess) err = freed;
+  }
+  return (int)err;
 }
-
-template <bool NEE>
-using LaunchFn = decltype(&launch<NEE, false, false>);
 
 // The instantiation for (sobol, SDF rows present).
 template <bool NEE>
-LaunchFn<NEE> pick(int sobol, int n_sdfs) {
-  if (n_sdfs > 0) return sobol ? launch<NEE, true, true> : launch<NEE, false, true>;
-  return sobol ? launch<NEE, true, false> : launch<NEE, false, false>;
+int pick(Launch L, int sobol, cudaStream_t stream) {
+  if (L.sdfs.n > 0) return sobol ? launch<NEE, true, true>(L, stream) : launch<NEE, false, true>(L, stream);
+  return sobol ? launch<NEE, true, false>(L, stream) : launch<NEE, false, false>(L, stream);
 }
 
-// Every instantiation of this library, for cornelis_megakernel*_load.
+// Every kernel of this library, for cornelis_megakernel*_load.
 template <bool NEE>
 int load_all() {
-  const void* fns[4] = {(const void*)megakernel<NEE, false, false>,
+  const void* fns[5] = {(const void*)megakernel<NEE, false, false>,
                         (const void*)megakernel<NEE, true, false>,
                         (const void*)megakernel<NEE, false, true>,
-                        (const void*)megakernel<NEE, true, true>};
+                        (const void*)megakernel<NEE, true, true>, (const void*)stage_tables<NEE>};
   for (const void* fn : fns) {
     cudaFuncAttributes attr;
     const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
@@ -958,28 +1253,66 @@ int load_all() {
   return 0;
 }
 
+// The launch's arguments, checked: n_rays in [0, 2^31) (ray indices are 32
+// bits wide), index_bits clamped to [1, 32]. Returns 0 or a CUDA error.
+int make_launch(Launch& L, const float* camera, const float* spheres, int n_spheres,
+                const float* planes, int n_planes, const float* materials, int n_materials,
+                const float* sdfs, int n_sdfs, float* out, unsigned* counter, long long n_rays,
+                uint32_t k0, uint32_t k1, uint32_t root, int width, float inv_width,
+                float inv_height, int spp_chunk, uint32_t sample_offset, int max_depth,
+                int index_bits, const float* lights, int n_lights, const float* clamp) {
+  if (n_rays < 0 || n_rays >= (1ll << 31) || spp_chunk < 1 || width < 1)
+    return (int)cudaErrorInvalidValue;
+  L.spheres = Table{spheres, n_spheres, 0};
+  L.planes = Table{planes, n_planes, 0};
+  L.materials = Table{materials, n_materials, 0};
+  L.sdfs = Table{sdfs, n_sdfs, 0};
+  L.lights = Table{lights, n_lights, 0};
+  L.tables = nullptr;
+  L.camera = camera;
+  L.clamp = clamp;
+  L.out = out;
+  L.counter = counter;
+  L.n_rays = (unsigned)n_rays;
+  L.k0 = k0;
+  L.k1 = k1;
+  L.root = root;
+  L.width = width;
+  L.inv_width = inv_width;
+  L.inv_height = inv_height;
+  L.spp_chunk = (unsigned)spp_chunk;
+  L.sample_offset = sample_offset;
+  L.max_depth = max_depth;
+  L.index_bits = index_bits < 1 ? 1 : (index_bits > 32 ? 32 : index_bits);
+  return 0;
+}
+
 }  // namespace
 
 #ifndef CORNELIS_MEGAKERNEL_NEE
 
-// Launches one thread per ray in mode "path" on `stream` and returns
-// cudaGetLastError(). sobol (0 or 1) and n_sdfs > 0 choose the
-// instantiation; index_bits is clamped to [1, 32].
+// Traces the n_rays rays of a chunk in mode "path" on `stream` and returns
+// the first CUDA error (0: launched). sobol (0 or 1) and n_sdfs > 0 choose
+// the instantiation; `counter` is one unsigned of device scratch that the
+// launch zeroes on `stream` before the kernel runs, so a launch must not
+// share it with another in flight. Writes out[3k..3k+2] for every ray k.
 extern "C" int cornelis_megakernel(const float* camera, const float* spheres, int n_spheres,
                                    const float* planes, int n_planes, const float* materials,
-                                   const float* sdfs, int n_sdfs, float* out, long long n_rays,
-                                   uint32_t k0, uint32_t k1, uint32_t root, int width,
-                                   float inv_width, float inv_height, int spp_chunk,
-                                   uint32_t sample_offset, int max_depth, int sobol,
+                                   int n_materials, const float* sdfs, int n_sdfs, float* out,
+                                   unsigned* counter, long long n_rays, uint32_t k0, uint32_t k1,
+                                   uint32_t root, int width, float inv_width, float inv_height,
+                                   int spp_chunk, uint32_t sample_offset, int max_depth, int sobol,
                                    int index_bits, void* stream) {
-  index_bits = index_bits < 1 ? 1 : (index_bits > 32 ? 32 : index_bits);
-  return pick<false>(sobol, n_sdfs)(camera, spheres, n_spheres, planes, n_planes, materials, sdfs,
-                                    n_sdfs, out, n_rays, k0, k1, root, width, inv_width,
-                                    inv_height, spp_chunk, sample_offset, max_depth, index_bits,
-                                    nullptr, 0, nullptr, (cudaStream_t)stream);
+  Launch L;
+  const int err = make_launch(L, camera, spheres, n_spheres, planes, n_planes, materials,
+                              n_materials, sdfs, n_sdfs, out, counter, n_rays, k0, k1, root, width,
+                              inv_width, inv_height, spp_chunk, sample_offset, max_depth,
+                              index_bits, nullptr, 0, nullptr);
+  if (err != 0 || n_rays == 0) return err;
+  return pick<false>(L, sobol, (cudaStream_t)stream);
 }
 
-// Loads this library's four kernels onto the current device (CUDA loads a
+// Loads this library's kernels onto the current device (CUDA loads a
 // module's kernels lazily, at first use) and returns the first error.
 extern "C" int cornelis_megakernel_load() { return load_all<false>(); }
 
@@ -989,17 +1322,20 @@ extern "C" int cornelis_megakernel_load() { return load_all<false>(); }
 // (n_lights rows of ops/lights.py's layout) and the clamp base.
 extern "C" int cornelis_megakernel_nee(const float* camera, const float* spheres, int n_spheres,
                                        const float* planes, int n_planes, const float* materials,
-                                       const float* sdfs, int n_sdfs, float* out,
-                                       long long n_rays, uint32_t k0, uint32_t k1, uint32_t root,
-                                       int width, float inv_width, float inv_height,
-                                       int spp_chunk, uint32_t sample_offset, int max_depth,
-                                       int sobol, int index_bits, const float* lights,
-                                       int n_lights, const float* clamp, void* stream) {
-  index_bits = index_bits < 1 ? 1 : (index_bits > 32 ? 32 : index_bits);
-  return pick<true>(sobol, n_sdfs)(camera, spheres, n_spheres, planes, n_planes, materials, sdfs,
-                                   n_sdfs, out, n_rays, k0, k1, root, width, inv_width,
-                                   inv_height, spp_chunk, sample_offset, max_depth, index_bits,
-                                   lights, n_lights, clamp, (cudaStream_t)stream);
+                                       int n_materials, const float* sdfs, int n_sdfs, float* out,
+                                       unsigned* counter, long long n_rays, uint32_t k0,
+                                       uint32_t k1, uint32_t root, int width, float inv_width,
+                                       float inv_height, int spp_chunk, uint32_t sample_offset,
+                                       int max_depth, int sobol, int index_bits,
+                                       const float* lights, int n_lights, const float* clamp,
+                                       void* stream) {
+  Launch L;
+  const int err = make_launch(L, camera, spheres, n_spheres, planes, n_planes, materials,
+                              n_materials, sdfs, n_sdfs, out, counter, n_rays, k0, k1, root, width,
+                              inv_width, inv_height, spp_chunk, sample_offset, max_depth,
+                              index_bits, lights, n_lights, clamp);
+  if (err != 0 || n_rays == 0) return err;
+  return pick<true>(L, sobol, (cudaStream_t)stream);
 }
 
 extern "C" int cornelis_megakernel_nee_load() { return load_all<true>(); }

@@ -43,6 +43,7 @@ import torch
 
 from ..integrator import NEE_CLAMP_FACTOR, host_nee_clamp
 from ..scene.compile import SceneTables
+from .build import launch, load_library
 
 LIGHT_COLS = 18
 COL_PROB, COL_CUM, COL_KIND, COL_PRIM, COL_G, COL_LE = 0, 1, 2, 3, 4, 12
@@ -152,8 +153,6 @@ def _check_dyn(tables: SceneTables) -> None:
 
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
-    from .build import load_library
-
     fn = load_library("lights").cornelis_light_table_dyn
     p, i = ctypes.c_void_p, ctypes.c_int
     # spheres, n_spheres, planes, n_planes, materials, n_materials, rows, clamp, stream
@@ -178,19 +177,17 @@ def light_table_dyn(tables: SceneTables) -> Lights:
     n_rows = tables.spheres.shape[0] + tables.planes.shape[0]
     rows = torch.empty((n_rows, LIGHT_COLS), dtype=torch.float32, device=device)
     clamp = torch.empty((1,), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        err = _kernel_fn()(
-            tables.spheres.data_ptr(),
-            tables.spheres.shape[0],
-            tables.planes.data_ptr(),
-            tables.planes.shape[0],
-            tables.materials.data_ptr(),
-            tables.materials.shape[0],
-            rows.data_ptr(),
-            clamp.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"light-table kernel launch failed with CUDA error {err}")
+    launch(
+        _kernel_fn(),
+        device,
+        tables.spheres.data_ptr(),
+        tables.spheres.shape[0],
+        tables.planes.data_ptr(),
+        tables.planes.shape[0],
+        tables.materials.data_ptr(),
+        tables.materials.shape[0],
+        rows.data_ptr(),
+        clamp.data_ptr(),
+    )
     LAUNCHES += 1
     return Lights(rows=rows, clamp=clamp)

@@ -51,6 +51,7 @@ from ..math.vec import (
 from ..sampling import hash32, sobol_pair
 from ..scene.compile import SDF_COLS, SceneTables
 from . import lights as L
+from .build import launch, load_library
 from .threefry import pair_uniforms
 
 # Kernel launches made by `render_rays` in this process, and those of them
@@ -391,17 +392,15 @@ def render_rays_reference(
 @functools.lru_cache(maxsize=None)
 def _kernel_fn(nee: bool):
     """The C entry point of mode "nee" (libmegakernel_nee) or "path"."""
-    from .build import load_library
-
     if nee:
         fn = load_library("megakernel_nee").cornelis_megakernel_nee
     else:
         fn = load_library("megakernel").cornelis_megakernel
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     fn.argtypes = [
-        p, p, i, p, i, p,  # camera, spheres, n_spheres, planes, n_planes, materials
+        p, p, i, p, i, p, i,  # camera, spheres, n_spheres, planes, n_planes, materials, n_materials
         p, i,  # sdfs, n_sdfs
-        p, ctypes.c_longlong,  # out, n_rays
+        p, p, ctypes.c_longlong,  # out, counter, n_rays
         u, u, u,  # k0, k1, root
         i, ctypes.c_float, ctypes.c_float,  # width, inv_width, inv_height
         i, u, i,  # spp_chunk, sample_offset, max_depth
@@ -444,6 +443,47 @@ def _check_lights(lights: L.Lights, device) -> None:
         raise ValueError(f"light table shapes {tuple(rows.shape)}, {tuple(clamp.shape)}")
 
 
+def _launch_into(out, tables, k0, k1, width, height, spp_chunk, offset, max_depth, *, root,
+                sampler, mode, index_bits, lights) -> None:
+    """Launch the kernel on checked CUDA tables, writing ray k's radiance to
+    out[k] ((n_rays, 3) float32 on the tables' device). The kernel's blocks
+    take rays in no fixed order, through a ray counter that this launch
+    allocates and the C entry zeroes on the launch's stream."""
+    nee = mode == "nee"
+    counter = torch.empty((1,), dtype=torch.int32, device=out.device)
+    light_args = (
+        (lights.rows.data_ptr(), lights.rows.shape[0], lights.clamp.data_ptr()) if nee else ()
+    )
+    launch(
+        _kernel_fn(nee),
+        out.device,
+        tables.camera.data_ptr(),
+        tables.spheres.data_ptr(),
+        tables.spheres.shape[0],
+        tables.planes.data_ptr(),
+        tables.planes.shape[0],
+        tables.materials.data_ptr(),
+        tables.materials.shape[0],
+        tables.sdfs.data_ptr(),
+        tables.sdfs.shape[0],
+        out.data_ptr(),
+        counter.data_ptr(),
+        out.shape[0],
+        k0,
+        k1,
+        root,
+        width,
+        1.0 / width,
+        1.0 / height,
+        spp_chunk,
+        offset,
+        max_depth,
+        int(sampler == "sobol"),
+        index_bits,
+        *light_args,
+    )
+
+
 def render_rays(
     tables: SceneTables,
     k0: int,
@@ -477,39 +517,9 @@ def render_rays(
         )
     if device.type != "cuda":
         raise ValueError(f"no megakernel for device {device}")
-    nee = mode == "nee"
-    n_rays = width * height * spp_chunk
-    out = torch.empty((n_rays, 3), dtype=torch.float32, device=device)
-    if nee:
-        light_args = (lights.rows.data_ptr(), lights.rows.shape[0], lights.clamp.data_ptr())
-    with torch.cuda.device(device):
-        err = _kernel_fn(nee)(
-            tables.camera.data_ptr(),
-            tables.spheres.data_ptr(),
-            tables.spheres.shape[0],
-            tables.planes.data_ptr(),
-            tables.planes.shape[0],
-            tables.materials.data_ptr(),
-            tables.sdfs.data_ptr(),
-            tables.sdfs.shape[0],
-            out.data_ptr(),
-            n_rays,
-            k0,
-            k1,
-            root,
-            width,
-            1.0 / width,
-            1.0 / height,
-            spp_chunk,
-            offset,
-            max_depth,
-            int(sampler == "sobol"),
-            index_bits,
-            *(light_args if nee else ()),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"megakernel launch failed with CUDA error {err}")
+    out = torch.empty((width * height * spp_chunk, 3), dtype=torch.float32, device=device)
+    _launch_into(out, tables, k0, k1, width, height, spp_chunk, offset, max_depth, root=root,
+                sampler=sampler, mode=mode, index_bits=index_bits, lights=lights)
     LAUNCHES += 1
     SDF_LAUNCHES += int(tables.sdfs.shape[0] > 0)
     return out

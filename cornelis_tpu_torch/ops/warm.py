@@ -20,8 +20,12 @@ import time
 
 import torch
 
+from .build import LIBRARIES, launch, load_library
+
 # (8, 128) float32: the block the TPU kernel zero-filled.
 WARM_SHAPE = (8, 128)
+WARM_NUMEL = 8 * 128
+_CUDA = torch.device("cuda")
 
 # Launches of the zero-fill kernel made by `zero_block`.
 LAUNCHES = 0
@@ -34,8 +38,6 @@ def zero_block_reference(device="cpu") -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
-    from .build import load_library
-
     fn = load_library("warm").cornelis_zero_fill
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -45,19 +47,19 @@ def _kernel_fn():
 def zero_block(device="cuda") -> torch.Tensor:
     """An (8, 128) float32 block of zeros on `device`: the zero-fill kernel
     on a CUDA device, the plain version on the CPU. A failed launch
-    raises."""
+    raises. The path is kept as lean as `torch.zeros`'s: a torch.device is
+    taken as given, and the launch is one ctypes call."""
     global LAUNCHES
-    device = torch.device(device)
-    if device.type == "cpu":
-        return zero_block_reference(device)
-    if device.type != "cuda":
-        raise ValueError(f"no zero-fill kernel for device {device}")
+    if not isinstance(device, torch.device):
+        device = torch.device(device)
+    if device != _CUDA:  # the common case skips device.type, a slow property
+        if device.type == "cpu":
+            return zero_block_reference(device)
+        if device.type != "cuda":
+            raise ValueError(f"no zero-fill kernel for device {device}")
     # Uninitialised memory: the kernel, not the allocator, writes the zeros.
     out = torch.empty(WARM_SHAPE, dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        err = _kernel_fn()(out.data_ptr(), out.numel(), torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"zero-fill launch failed with CUDA error {err}")
+    launch(_kernel_fn(), device, out.data_ptr(), WARM_NUMEL)
     LAUNCHES += 1
     return out
 
@@ -67,8 +69,6 @@ def warm_kernels(device="cuda") -> dict:
     instantiation onto `device`, then launch the zero fill and synchronise.
     Returns {"load_s": seconds to build and load, "first_launch_s": seconds
     of the first zero fill, "zeros": its output}."""
-    from .build import LIBRARIES, load_library
-
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"warm_kernels needs a CUDA device, not {device}")

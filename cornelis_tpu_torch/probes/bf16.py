@@ -23,6 +23,7 @@ import sys
 
 import torch
 
+from ..ops.build import launch, load_library
 from . import linspace_f32
 
 SHAPE = (2048, 128)  # ROWS * PASSES x LANES of the JAX probe
@@ -65,8 +66,6 @@ def quad_reference(x: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _fn():
-    from ..ops.build import load_library
-
     fn = load_library("probes").cornelis_quad_probe
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [i, p, p, i, p]  # bf16, x, out, n, stream
@@ -82,11 +81,8 @@ def quad_probe(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return quad_reference(x)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _fn()(int(x.dtype == torch.bfloat16), x.data_ptr(), out.data_ptr(), x.numel(),
-                    torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"bf16 probe launch failed with CUDA error {err}")
+    launch(_fn(), x.device, int(x.dtype == torch.bfloat16), x.data_ptr(), out.data_ptr(),
+           x.numel())
     LAUNCHES[str(x.dtype).split(".")[-1]] += 1
     return out
 

@@ -25,6 +25,7 @@ import sys
 
 import torch
 
+from ..ops.build import launch, load_library
 from . import linspace_f32
 
 SHAPE = (1024, 128)  # ROWS * PASSES x LANES of the JAX probe
@@ -97,8 +98,6 @@ def scan_dynamic_reference(o: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _fns():
-    from ..ops.build import load_library
-
     lib = load_library("probes")
     p, i = ctypes.c_void_p, ctypes.c_int
     baked, dynamic = lib.cornelis_scan_baked, lib.cornelis_scan_dynamic
@@ -122,11 +121,7 @@ def scan_baked(o: torch.Tensor, n_obj: int = DEFAULT_N) -> torch.Tensor:
     if n_obj not in BAKED_COUNTS:
         raise ValueError(f"the baked scan is instantiated for {BAKED_COUNTS} spheres, not {n_obj}")
     out = torch.empty_like(o)
-    with torch.cuda.device(o.device):
-        err = _fns()[0](n_obj, o.data_ptr(), out.data_ptr(), o.numel(),
-                        torch.cuda.current_stream(o.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"baked scan launch failed with CUDA error {err}")
+    launch(_fns()[0], o.device, n_obj, o.data_ptr(), out.data_ptr(), o.numel())
     LAUNCHES["baked"] += 1
     return out
 
@@ -141,11 +136,8 @@ def scan_dynamic(o: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
     if o.device.type == "cpu":
         return scan_dynamic_reference(o, tab)
     out = torch.empty_like(o)
-    with torch.cuda.device(o.device):
-        err = _fns()[1](tab.data_ptr(), tab.shape[0], o.data_ptr(), out.data_ptr(), o.numel(),
-                        torch.cuda.current_stream(o.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dynamic scan launch failed with CUDA error {err}")
+    launch(_fns()[1], o.device, tab.data_ptr(), tab.shape[0], o.data_ptr(), out.data_ptr(),
+           o.numel())
     LAUNCHES["dynamic"] += 1
     return out
 

@@ -14,7 +14,10 @@ within 1%, the bar of `chip_smoke.py` and of the plain version against
 the Pallas kernel in `tests/test_torch_megakernel.py`. The light-table
 kernel does only float32 products and sums in the plain version's
 order, so it is held to float32 rounding. The SDF instantiations are held
-to the same bar on sdf_gallery. The zero fill must equal torch.zeros; the
+to the same bar on sdf_gallery, and the sphere and plane ones on scenes
+whose tables cross the kernel's shared-memory cap. The kernel's blocks take
+rays in no fixed order: every ray is written, and two launches give the
+same bits. The zero fill must equal torch.zeros; the
 probes their plain versions, float32 within 1 ulp (they round every
 operation as the plain versions do) and bfloat16 within 1 bfloat16 ulp.
 """
@@ -145,6 +148,74 @@ def test_cuda_sdf_variant_matches_plain_version(cuda, mode, sampler):
     p = megakernel.render_rays_reference(*args, "cuda", **kw)
     frac, mean_rel = agreement(k.cpu().numpy(), p.cpu().numpy())
     assert torch.isfinite(k).all()
+    assert frac >= 0.99 and (mean_rel <= 1e-2).all()
+
+
+WORK_ORDER_CASES = [("cornell_box", "path", "uniform"), ("cornell_panel", "nee", "sobol"),
+                    ("sdf_gallery", "path", "sobol"), ("sdf_gallery", "nee", "uniform")]
+
+
+def _variant(scene, mode, sampler):
+    tables = compile_scene(getattr(tlib, scene)(), device="cuda")
+    k0, k1, root = key_row(DEFAULT_SEED)
+    kw = dict(root=root, sampler=sampler, mode=mode, index_bits=megakernel.index_bits_for(64),
+              lights=lights.light_table(tables) if mode == "nee" else None)
+    return tables, k0, k1, kw
+
+
+@pytest.mark.parametrize("scene,mode,sampler", WORK_ORDER_CASES)
+def test_cuda_every_ray_is_written_under_the_dynamic_work_order(cuda, scene, mode, sampler):
+    # The blocks take rays from a counter in no fixed order: launched
+    # through the C entry into a NaN-filled output, a ray count that is no
+    # multiple of a block's claim (37 x 23 x 3) leaves no ray unwritten.
+    tables, k0, k1, kw = _variant(scene, mode, sampler)
+    out = torch.full((37 * 23 * 3, 3), float("nan"), device="cuda")
+    megakernel._launch_into(out, tables, k0, k1, 37, 23, 3, 5, 64, **kw)
+    torch.cuda.synchronize()
+    assert not torch.isnan(out).any()
+    want = megakernel.render_rays_reference(tables, k0, k1, 37, 23, 3, 5, 64, "cuda", **kw)
+    frac, mean_rel = agreement(out.cpu().numpy(), want.cpu().numpy())
+    assert frac >= 0.99 and (mean_rel <= 1e-2).all()
+
+
+@pytest.mark.parametrize("scene,mode,sampler", WORK_ORDER_CASES)
+def test_cuda_launches_are_deterministic_on_one_and_two_streams(cuda, scene, mode, sampler):
+    # Each launch zeroes its own ray counter: two launches give the same
+    # bits back to back on one stream and side by side on two.
+    tables, k0, k1, kw = _variant(scene, mode, sampler)
+    args = (tables, k0, k1, 96, 96, 8, 0, 64)
+    first = megakernel.render_rays(*args, **kw)
+    second = megakernel.render_rays(*args, **kw)
+    streams = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    side = []
+    for s in streams:
+        with torch.cuda.stream(s):
+            side.append(megakernel.render_rays(*args, **kw))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(side[0], first) and torch.equal(side[1], first)
+
+
+@pytest.mark.parametrize("mode,sampler", [("path", "uniform"), ("nee", "sobol")])
+@pytest.mark.parametrize("n", [2200, 3000])
+def test_cuda_sphere_grid_beyond_the_shared_memory_cap(cuda, n, mode, sampler):
+    # The kernel stages the tables in shared memory up to 64 KB.
+    # sphere_grid(2200)'s take about 56 KB (staged, above the 48 KB default
+    # limit); sphere_grid(3000)'s about 77 KB, so its 3001 spheres stay in
+    # device memory. Both still match the plain version.
+    tables = compile_scene(tlib.sphere_grid(n), device="cuda")
+    floats = 5 * tables.spheres.shape[0] + 11 * tables.materials.shape[0] + 16 * tables.planes.shape[0]
+    assert (48 * 1024 < 4 * floats < 64 * 1024) == (n == 2200)
+    k0, k1, root = key_row(DEFAULT_SEED)
+    kw = dict(root=root, sampler=sampler, mode=mode, index_bits=megakernel.index_bits_for(4),
+              lights=lights.light_table(tables) if mode == "nee" else None)
+    args = (tables, k0, k1, 8, 8, 2, 0, 3)
+    k = megakernel.render_rays(*args, **kw)
+    torch.cuda.synchronize()
+    p = megakernel.render_rays_reference(*args, "cuda", **kw)
+    frac, mean_rel = agreement(k.cpu().numpy(), p.cpu().numpy())
+    assert torch.isfinite(k).all() and k.sum() > 0
     assert frac >= 0.99 and (mean_rel <= 1e-2).all()
 
 

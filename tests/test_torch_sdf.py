@@ -54,6 +54,7 @@ from cornelis_tpu.scene.compile import compile_scene as jcompile
 from cornelis_tpu.scene.description import SceneDescription as JScene
 from cornelis_tpu_torch import geometry as tg
 from cornelis_tpu_torch.math.vec import Vec3 as TVec3
+from cornelis_tpu_torch.math.vec import mag2
 from cornelis_tpu_torch import RenderOptions, RenderSession, RenderStatus
 from cornelis_tpu_torch.__main__ import main as cli_main
 from cornelis_tpu_torch.ops import lights, megakernel
@@ -180,6 +181,66 @@ def test_sdf_march_steps_count_each_rays_own_march():
     want = [own_march(-5.0, dz, dx) for dz, dx in rays]
     assert want[0] == 2 and min(want[1:]) > 8
     assert steps.dtype == torch.int32 and steps.tolist() == want
+
+
+def _random_sdf_rays(kind):
+    """(o, d, center, params, rot, scale) of test_sdf_candidate_matches_jax's
+    turned-and-scaled case, as torch values."""
+    rng = np.random.RandomState(23 + 2 * kind + 1)
+    params = np.asarray(PARAMS[kind], np.float32)
+    rot, scale = _rotation(rng), np.float32(0.7)
+    center = np.asarray([0.3, -0.2, 0.5], np.float32)
+    o = (rng.uniform(-1.0, 1.0, (N, 3)) + [0.0, 0.0, -6.0]).astype(np.float32)
+    target = (center + rng.uniform(-1.2, 1.2, (N, 3))).astype(np.float32)
+    d = ((target - o) * rng.uniform(0.5, 2.0, (N, 1)) / 6.0).astype(np.float32)
+    return (_tv(o), _tv(d), TVec3(*(torch.tensor(float(v)) for v in center)),
+            torch.from_numpy(params), torch.from_numpy(rot), torch.tensor(scale))
+
+
+def _gallery_sdf_rays(k):
+    """Rays from around sdf_gallery_transformed's camera toward its SDF row k."""
+    kind, c, params, _mid, rot, scale = list(
+        megakernel._sdf_rows(compile_scene(tlib.sdf_gallery_transformed())))[k]
+    rng = np.random.RandomState(41 + k)
+    center = np.asarray([float(v) for v in c], np.float32)
+    o = (rng.uniform(-1.0, 1.0, (N, 3)) + [0.0, 1.5, -6.0]).astype(np.float32)
+    target = (center + rng.uniform(-1.5, 1.5, (N, 3))).astype(np.float32)
+    d = ((target - o) * rng.uniform(0.5, 2.0, (N, 1))).astype(np.float32)
+    return kind, (_tv(o), _tv(d), c, params, rot, scale)
+
+
+MARCH_CASES = {**{name: lambda k=k: (k, _random_sdf_rays(k)) for name, k in KINDS.items()},
+               **{f"gallery{k}": lambda k=k: _gallery_sdf_rays(k) for k in range(3)}}
+
+
+@pytest.mark.parametrize("limit", ["at_t", "ulp_below", "ulp_above", "inf"])
+@pytest.mark.parametrize("case", list(MARCH_CASES))
+def test_sdf_march_cut_at_a_limit_decides_as_the_full_march(case, limit):
+    # The kernel stops each SDF march once t_world reaches the limit (the
+    # best hit so far, or t_max) times |d|, rounded up. The decision that
+    # follows, valid and t < limit, must be the full march's: a hit below
+    # the limit at the same t, else "not closer"; and the cut march never
+    # evaluates more than the full one. Misses get the limit of the ray's
+    # distance to the centre, so the cut falls mid-march.
+    kind, (o, d, c, params, rot, scale) = MARCH_CASES[case]()
+    args = (o, d, kind, c, params, rot, scale)
+    t_full, _p, _n, v_full = tg.sdf_candidate(*args, with_normal=False)
+    assert 0.05 < v_full.double().mean().item() < 0.95
+    to_centre = torch.sqrt(mag2(o - c) / mag2(d))
+    base = torch.where(v_full, t_full, to_centre)
+    lim = {"at_t": base, "inf": torch.full_like(base, math.inf),
+           "ulp_below": torch.nextafter(base, torch.full_like(base, -math.inf)),
+           "ulp_above": torch.nextafter(base, torch.full_like(base, math.inf))}[limit]
+    t_cut, _p, _n, v_cut = tg.sdf_candidate(*args, with_normal=False, limit=lim)
+    closer_full, closer_cut = v_full & (t_full < lim), v_cut & (t_cut < lim)
+    assert torch.equal(closer_cut, closer_full)
+    assert torch.equal(t_cut[closer_cut], t_full[closer_full])
+    full_steps = tg.sdf_march_steps(*args)
+    cut_steps = tg.sdf_march_steps(*args, limit=lim)
+    if limit == "inf":
+        assert torch.equal(cut_steps, full_steps)
+    else:
+        assert (cut_steps <= full_steps).all() and cut_steps.sum() < full_steps.sum()
 
 
 def transformed_scenes():

@@ -50,7 +50,25 @@ raises, so the exit code is not 0 and no result line is printed:
      ray; the probes at their JAX shapes and the zero fill against
      torch.zeros (CUDA events, with torch.empty's time beside them: the
      allocation both pay); then the pinned NEE firefly of
-     tests/test_nee.py on the kernel, clamp off and on (printed only).
+     tests/test_nee.py on the kernel, clamp off and on (printed only);
+  6. the differentiable mode, torch ops under autograd (no kernel of its
+     own): (a) the wavefront's render_chunk against the megakernel's on
+     Cornell at 256x256, 32 spp, max_depth 64, path/uniform and nee/sobol
+     (different draws: per-channel image means within 2%); (b) render_diff
+     and the gradients of all seven float fields on the card against the
+     CPU, Cornell 32x32, 8 spp, max_depth 4, path and nee (pixels and
+     gradients as tests/test_torch_diff.py holds them against JAX); (c)
+     finite differences on the card as tests/test_diff.py's (albedo and
+     emission in path and nee, roughness attached), 64x64, 16 spp,
+     max_depth 4, over the pixels with no jump inside the window; (d)
+     InverseRenderer steps at the JAX package's inverse-render shape
+     (Cornell 256x256, 32 spp, max_depth 16, albedo and roughness, "dual",
+     lr 5e-2) and at bench.py's (128x128, 32 spp, max_depth 8), each mode:
+     a warm step, 8 timed steps, the loss without gradient 8 times, peak
+     memory; (e) the albedo recovery of tests/test_diff.py on the card
+     (sphere_on_plane 24x24, 250 steps); (f) one profiled demo step: the
+     busiest device operations and the share of the gather's backward. Its
+     figures are the {"diff": ...} line before the kernels line.
 
 Each kernel's least time (bound_ms) is computed from this run's inputs:
 for the megakernel, the float32 operations of the work the kernel does
@@ -336,7 +354,8 @@ def counted_work(megakernel, run):
     to t_max, until one occludes)."""
     import torch
 
-    from cornelis_tpu_torch.geometry import sdf_candidate, sdf_march_steps
+    from cornelis_tpu_torch.geometry import sdf_candidate, sdf_march_steps, sdf_objects
+    from cornelis_tpu_torch.scene.compile import scene_arrays
     from cornelis_tpu_torch.math.vec import Vec3, dot
 
     names = ("intersect", "_sample_light", "occluded")
@@ -362,7 +381,7 @@ def counted_work(megakernel, run):
         if tables.sdfs.shape[0]:
             lo, ld = Vec3(*(c[live] for c in o)), Vec3(*(c[live] for c in d))
             best = orig["intersect"](tables._replace(sdfs=tables.sdfs[:0]), lo, ld)[0]
-            for kind, center, params, _m, rot, scale in megakernel._sdf_rows(tables):
+            for kind, center, params, _m, rot, scale in sdf_objects(scene_arrays(tables)):
                 add(("march", kind), sdf_march_steps(lo, ld, kind, center, params, rot, scale,
                                                      limit=best))
                 t, _p, _n, valid = sdf_candidate(lo, ld, kind, center, params, rot=rot,
@@ -383,7 +402,7 @@ def counted_work(megakernel, run):
         if tables.sdfs.shape[0]:
             left = state["cast"] & ~orig["occluded"](tables._replace(sdfs=tables.sdfs[:0]), o, d,
                                                      t_max)
-            for kind, center, params, _m, rot, scale in megakernel._sdf_rows(tables):
+            for kind, center, params, _m, rot, scale in sdf_objects(scene_arrays(tables)):
                 idx = left.nonzero().flatten()
                 so, sd = Vec3(*(c[idx] for c in o)), Vec3(*(c[idx] for c in d))
                 add(("shadow", kind), sdf_march_steps(so, sd, kind, center, params, rot, scale,
@@ -444,20 +463,21 @@ def bound_ms(nbytes: float, fp32: float = 0.0, bf16: float = 0.0):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def timed(fn, reps=3, warmup=True):
-    """(median seconds of `reps` calls after one warm-up, synchronized;
-    the last call's result)."""
+def timed(fn, reps=3, warmup=True, sync=None):
+    """(median seconds of `reps` calls after one warm-up, synchronized by
+    `sync`, the card's by default; the last call's result)."""
     import torch
 
+    sync = sync or torch.cuda.synchronize
     if warmup:
         fn()
-    torch.cuda.synchronize()
+    sync()
     times = []
     for _ in range(reps):
-        torch.cuda.synchronize()
+        sync()
         t0 = time.perf_counter()
         out = fn()
-        torch.cuda.synchronize()
+        sync()
         times.append(time.perf_counter() - t0)
     return statistics.median(times), out
 
@@ -475,6 +495,270 @@ def hold_to_plain(name, kern, plain):
     check(frac >= RAY_FRACTION, f"{name}: only {frac:.4%} of rays agree")
     check(rel <= MEAN_REL, f"{name}: channel means {rel:.4%} apart")
     return frac, err
+
+
+# Phase 6. The seven float fields of tests/test_diff.py; each gradient
+# within 2% relative L2 of the CPU's, over the pixels whose image agrees
+# (the knife-edge rays of ROADMAP §C go elsewhere under another rounding)
+# and without the light's albedo and tint rows, which only zero-throughput
+# rays re-hitting the light carry (tests/test_torch_diff.py).
+DIFF_FIELDS = ("mat_albedo", "mat_emission", "mat_tint", "mat_roughness", "sphere_center",
+               "sphere_radius", "plane_point")
+LIGHT_ROWS = ("mat_albedo", "mat_tint")
+GRAD_REL = 0.02
+WAVE_MEAN_REL = 0.02
+# Finite differences: a pixel whose two one-sided differences part by
+# more than JUMP_TOL x (1 + |value|) has a discontinuity (an RR kill, a
+# below-horizon flip, a silhouette) inside the window, and is left out of
+# both the loss and its difference; at least FD_SMOOTH of them must stay.
+JUMP_TOL = 1e-5
+FD_SMOOTH = 0.9
+# (field, component, index or None for the light, eps, rtol, atol, detach)
+# as tests/test_diff.py:113-194.
+FD_CHECKS = (
+    ("mat_albedo", "x", 1, 1e-2, 0.05, 2e-4, True),
+    ("mat_emission", "x", None, 1e-2, 0.05, 2e-4, True),
+    ("mat_roughness", None, 1, 2e-4, 0.05, 5e-4, False),
+)
+# The inverse-render shapes: tools/r5_inverse.py's demo and bench.py's.
+DIFF_SHAPES = (("demo", 256, 32, 16), ("bench", 128, 32, 8))
+DIFF_STEPS = 8
+
+
+def diff_grads(scene, weight, key, fields=DIFF_FIELDS, **kw):
+    """(render_diff image, {field: gradient}) of the weight-masked image
+    mean, the gradients as numpy vectors (Vec3 rows concatenated)."""
+    import torch
+
+    from cornelis_tpu_torch.diff import render_diff
+    from cornelis_tpu_torch.math.vec import Vec3
+    from cornelis_tpu_torch.rng import make_key
+
+    leaf = lambda t: t.detach().clone().requires_grad_(True)
+    leaves = {f: Vec3(*(leaf(c) for c in v)) if isinstance(v, Vec3) else leaf(v)
+              for f, v in ((f, getattr(scene, f)) for f in fields)}
+    img = render_diff(scene._replace(**leaves), make_key(key, scene.device), **kw)
+    (torch.sum(img * weight[:, :, None]) / (3.0 * weight.sum())).backward()
+    grads = {f: torch.cat([c.grad.flatten() for c in (v if isinstance(v, Vec3) else (v,))])
+             .cpu().numpy() for f, v in leaves.items()}
+    return img.detach(), grads
+
+
+def fd_check(scene, field, component, index, eps, key, **kw):
+    """(gradient, finite difference, share of smooth pixels) of one float
+    of `field`, over the pixels with no jump inside the window."""
+    import torch
+
+    from cornelis_tpu_torch.diff import render_diff
+    from cornelis_tpu_torch.rng import make_key
+
+    value = getattr(scene, field)
+    base = value if component is None else getattr(value, component)
+    onehot = (torch.arange(base.shape[0], device=base.device) == index).float()
+
+    def at(t):
+        return scene._replace(**{field: t if component is None else value._replace(**{component: t})})
+
+    k = make_key(key, scene.device)
+    with torch.no_grad():
+        f0, fp, fm = (render_diff(at(base + d * onehot), k, **kw) for d in (0.0, eps, -eps))
+    jump = ((fp - f0) - (f0 - fm)).abs()
+    smooth = (jump <= JUMP_TOL * (1.0 + f0.abs())).all(dim=-1).float()
+    norm = 3.0 * smooth.sum()
+    leaf = base.detach().clone().requires_grad_(True)
+    (render_diff(at(leaf), k, **kw) * smooth[:, :, None]).sum().div(norm).backward()
+    fd = float(((fp - fm) * smooth[:, :, None]).sum() / norm) / (2 * eps)
+    return float(leaf.grad[index]), fd, float(smooth.mean()), float((fp - fm).mean()) / (2 * eps)
+
+
+def diff_phase(device: str, card: str, cpu_scale: int = 1) -> dict:
+    """Phase 6 on `device`; the {"diff": ...} record. cpu_scale > 1 divides
+    every frame's width (a rehearsal on the CPU)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cornelis_tpu_torch import integrator
+    from cornelis_tpu_torch.diff import InverseRenderer, make_loss, render_diff
+    from cornelis_tpu_torch.math.vec import Vec3
+    from cornelis_tpu_torch.ops import megakernel
+    from cornelis_tpu_torch.rng import fold_in, key_row, make_key
+    from cornelis_tpu_torch.scene.compile import compile_scene, scene_arrays
+    from cornelis_tpu_torch.scene.library import cornell_box, sphere_on_plane
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    px = lambda n: max(4, n // cpu_scale)
+    tables = compile_scene(cornell_box(), device=device)
+    scene = scene_arrays(tables)
+    light = int(torch.argmax(scene.mat_emission.x))
+    record = {}
+
+    # (a) The wavefront against the kernel: their Threefry draws differ, so
+    # the bar is on the image means.
+    for mode, sampler in (("path", "uniform"), ("nee", "sobol")):
+        kw = dict(width=px(256), height=px(256), spp_chunk=32, spp_total=32, max_depth=64,
+                  sampler=sampler, mode=mode)
+        wave_s, wave = timed(lambda: integrator.render_chunk(scene, make_key(SEED, device), 0, **kw),
+                             reps=1, sync=sync)
+        kern_s, kern = timed(lambda: megakernel.render_chunk(tables, key_row(SEED), 0, **kw),
+                             reps=1, sync=sync)
+        mw, mk = wave.double().mean((0, 1)), kern.double().mean((0, 1))
+        gap = ((mw - mk).abs() / mk.abs()).max().item()
+        same = torch.isclose(wave, kern, rtol=1e-4, atol=1e-4).all(dim=-1).double().mean().item()
+        print(f"(a) {mode}/{sampler}, Cornell {kw['width']}x{kw['height']}, 32 spp, max_depth 64: "
+              f"wavefront {wave_s:.3f} s, megakernel {kern_s * 1e3:.3f} ms (second call each); "
+              f"channel means {[round(v, 5) for v in (mw / 32).tolist()]} against "
+              f"{[round(v, 5) for v in (mk / 32).tolist()]}, {gap:.4%} apart; {same:.2%} of pixel "
+              f"sums within 1e-4 (the kernel's Sobol draws are the wavefront's, its Threefry "
+              f"ones are not)")
+        check(bool(torch.isfinite(wave).all()) and wave.shape == kern.shape, "bad wavefront image")
+        check(gap <= WAVE_MEAN_REL, f"wavefront and kernel means {gap:.4%} apart")
+
+    # (b) The same code on the card and on the CPU.
+    if device != "cpu":
+        cpu = scene_arrays(compile_scene(cornell_box(), device="cpu"))
+        keep = np.arange(scene.mat_roughness.shape[0]) != light
+        for mode in ("path", "nee"):
+            kw = dict(width=32, height=32, spp=8, max_depth=4, mode=mode)
+            ones = torch.ones((32, 32))
+            img_c, _ = diff_grads(cpu, ones, 5, **kw)
+            img_g, _ = diff_grads(scene, ones.to(device), 5, **kw)
+            agree = torch.isclose(img_g.cpu(), img_c, rtol=1e-4, atol=1e-4).all(dim=-1)
+            frac = agree.double().mean().item()
+            bar = 0.99 if mode == "path" else 0.90
+            _, g_c = diff_grads(cpu, agree.float(), 5, **kw)
+            _, g_g = diff_grads(scene, agree.float().to(device), 5, **kw)
+            rels = {}
+            for f in DIFF_FIELDS:
+                sel = np.tile(keep, 3) if f in LIGHT_ROWS else slice(None)
+                check(bool(np.isfinite(g_g[f]).all()), f"(b) {f}: gradient not finite")
+                rels[f] = float(np.linalg.norm(g_g[f][sel] - g_c[f][sel])
+                                / max(np.linalg.norm(g_c[f][sel]), 1e-30))
+            light_rel = {f: float(np.linalg.norm(g_g[f] - g_c[f]) / max(np.linalg.norm(g_c[f]), 1e-30))
+                         for f in LIGHT_ROWS}
+            print(f"(b) {mode}: card against CPU, 32x32x8 spp, max_depth 4: {frac:.4%} of pixels "
+                  f"within 1e-4; gradients' relative L2 gap {rels}; with the light's rows "
+                  f"{light_rel}")
+            check(frac >= bar, f"(b) {mode}: only {frac:.4%} of pixels agree")
+            check(all(r <= GRAD_REL for r in rels.values()), f"(b) {mode}: gradients apart {rels}")
+
+    # (c) Finite differences on the card.
+    for mode in ("path", "nee"):
+        for field, comp, index, eps, rtol, atol, detach in FD_CHECKS:
+            index = light if index is None else index
+            kw = dict(width=px(64), height=px(64), spp=16, max_depth=4, detach=detach, mode=mode)
+            g, fd, smooth, fd_all = fd_check(scene, field, comp, index, eps, 5, **kw)
+            print(f"(c) {mode} {field}[{index}]{'.' + comp if comp else ''}, detach {detach}: "
+                  f"gradient {g:.6g}, difference {fd:.6g} over {smooth:.2%} of pixels (all pixels: "
+                  f"{fd_all:.6g})")
+            check(np.isfinite(g) and abs(g - fd) <= atol + rtol * abs(fd),
+                  f"(c) {mode} {field}: gradient {g} against difference {fd}")
+            check(smooth >= FD_SMOOTH, f"(c) {mode} {field}: {smooth:.2%} of pixels smooth")
+
+    # (d) Inverse-render steps at the demo's and bench.py's shapes.
+    start = scene._replace(
+        mat_albedo=Vec3(*(torch.clamp(c * 0.4 + 0.3, 0.02, 0.95) for c in scene.mat_albedo)),
+        mat_roughness=torch.full_like(scene.mat_roughness, 0.35),
+    )
+    demo = {}
+    for shape, width, spp, depth in DIFF_SHAPES:
+        width = px(width)
+        kw = dict(width=width, height=width, spp=spp, max_depth=depth)
+        with torch.no_grad():
+            target = (render_diff(scene, make_key(9, device), **kw) if shape == "demo"
+                      else torch.zeros((width, width, 3), device=device))
+        for mode in ("nee", "path"):
+            prefix = "diff" + ("_nee" if mode == "nee" else "") + ("_demo" if shape == "demo" else "")
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            inv = InverseRenderer(start if shape == "demo" else scene, target,
+                                  fields=("mat_albedo", "mat_roughness"), learning_rate=5e-2,
+                                  seed=3, key_strategy="dual", mode=mode, **kw)
+            first = inv.step()
+            sync()
+            t0 = time.perf_counter()
+            losses = inv.run(DIFF_STEPS)
+            sync()
+            dt_step = (time.perf_counter() - t0) / DIFF_STEPS
+            peak = torch.cuda.max_memory_allocated() / 2**20 if device == "cuda" else 0.0
+            grads = {f: torch.cat([c.grad.flatten() for c in v]) if isinstance(v, Vec3) else v.grad
+                     for f, v in inv.params.items()}
+            loss_fn = make_loss(inv.base_scene, target, mode=mode, **kw)
+            with torch.no_grad():
+                loss_fn(inv.params, make_key(7, device))
+                sync()
+                t0 = time.perf_counter()
+                fwd = sum(loss_fn(inv.params, fold_in(make_key(7, device), i))
+                          for i in range(DIFF_STEPS))
+                fwd = float(fwd)
+                dt_fwd = (time.perf_counter() - t0) / DIFF_STEPS
+            rays = width * width * spp * 2  # "dual": two renders a step
+            record.update({
+                f"{prefix}_shape": f"{width}x{width}x{spp}spp_d{depth}",
+                f"{prefix}_steps_per_s": 1.0 / dt_step,
+                f"{prefix}_step_ms": dt_step * 1e3,
+                f"{prefix}_fwd_bwd_mrays": rays / dt_step / 1e6,
+                f"{prefix}_fwd_mrays": rays / dt_fwd / 1e6,
+                f"{prefix}_bwd_over_fwd": dt_step / dt_fwd - 1.0,
+                f"{prefix}_peak_mib": peak,
+            })
+            print(f"(d) {shape} {mode} {width}x{width}x{spp} spp, max_depth {depth}: step "
+                  f"{dt_step * 1e3:.1f} ms ({1 / dt_step:.3f} steps/s, {rays / dt_step / 1e6:.3f} "
+                  f"Mrays/s fwd+bwd), loss without gradient {dt_fwd * 1e3:.1f} ms "
+                  f"({rays / dt_fwd / 1e6:.3f} Mrays/s), bwd/fwd {dt_step / dt_fwd - 1.0:.3f}, peak "
+                  f"{peak:.0f} MiB on {card}; losses {first:.6g} then "
+                  f"{[round(v, 6) for v in losses]}")
+            check(all(np.isfinite(v) for v in [first, fwd, *losses]), f"(d) {prefix}: loss not finite")
+            for f, g in grads.items():
+                check(bool(torch.isfinite(g).all()) and bool((g != 0).any()),
+                      f"(d) {prefix}: {f} gradient not finite or all zero")
+            if shape == "demo":
+                demo[mode] = inv
+
+    # (e) Recovery on the card (tests/test_diff.py::test_recovers_albedo).
+    true = scene_arrays(compile_scene(sphere_on_plane(), device=device))
+    with torch.no_grad():
+        target = render_diff(true, make_key(9, device), width=24, height=24, spp=192, max_depth=4)
+    a = true.mat_albedo
+    corrupted = true._replace(mat_albedo=Vec3(a.x * 0.3 + 0.1, a.y * 0.5 + 0.3, a.z * 0.2 + 0.5))
+    inv = InverseRenderer(corrupted, target, fields=("mat_albedo",), width=24, height=24, spp=24,
+                          max_depth=4, learning_rate=0.1, seed=3, key_strategy="dual")
+    t0 = time.perf_counter()
+    losses = inv.run(250)
+    sync()
+    recover_s = time.perf_counter() - t0
+    err = lambda alb: sum(float((c[1:3] - t[1:3]).abs().mean()) for c, t in zip(alb, a)) / 3
+    err0, err1 = err(corrupted.mat_albedo), err(inv.scene().mat_albedo)
+    print(f"(e) sphere_on_plane 24x24, 250 steps in {recover_s:.2f} s: visible albedo error "
+          f"{err0:.4f} -> {err1:.4f}; loss {losses[0]:.4g} -> {losses[-1]:.4g}")
+    check(err1 < 0.6 * err0, f"(e) albedo not recovered: {err0} -> {err1}")
+    record.update(diff_recover_s=recover_s, diff_recover_err=[err0, err1])
+
+    # (f) Where the backward spends its time: one demo step, path mode.
+    if device == "cuda":
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            demo["path"].step()
+            sync()
+            wall = time.perf_counter() - t0
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        busy = sum(e.self_device_time_total for e in rows)
+        check(busy > 0, "(f) the profiler saw no device time")
+        rows.sort(key=lambda e: -e.self_device_time_total)
+        # The gather's backward: index_add_'s kernels (indexFunc*), and
+        # advanced indexing's (indexing_backward*) should one come back.
+        backward = sum(e.self_device_time_total for e in rows
+                       if "indexFunc" in e.key or "indexing_backward" in e.key) / busy
+        print(f"(f) one demo step, path: wall {wall * 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
+              f"(idle share {1 - busy / 1e3 / (wall * 1e3):.3f}); the gather's backward "
+              f"{backward:.2%} of device time")
+        for e in rows[:12]:
+            print(f"    {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:100]}")
+        record.update(diff_profile_busy_ms=busy / 1e3, diff_profile_wall_ms=wall * 1e3,
+                      diff_gather_backward_share=backward)
+    return record
 
 
 def main() -> int:
@@ -1003,6 +1287,10 @@ def main() -> int:
               f"{plain.sum(0).max().item():.6g}")
     phase_done()
 
+    phase("6. the differentiable mode (torch wavefront under autograd)")
+    diff_record = diff_phase("cuda", card)
+    phase_done()
+
     check(not spilled, f"megakernel instantiations spill: {spilled}")
     kernels = []
     for rec in records.values():
@@ -1013,6 +1301,7 @@ def main() -> int:
         kernels.append({**rec, "min_fraction_within_tol": min(fracs), "max_abs_err": max(errs)})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
+    print(json.dumps({"diff": diff_record}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -6,7 +6,9 @@ CUDA kernel for Hopper (ops/csrc/megakernel.cu). This package imports
 torch and numpy, never jax. It runs the path and NEE integrators with the
 uniform and Sobol samplers on spheres, planes and SDF primitives, the
 dynamic-scene render (ops/dynamic.py, spheres and planes), the warm-up
-(ops/warm.py) and the TPU-era probes (probes/).
+(ops/warm.py) and the TPU-era probes (probes/); and, on the torch-op
+wavefront (integrator.py) under autograd, the differentiable mode
+(diff/: render_diff and InverseRenderer).
 """
 
 from .camera import Camera, generate_rays, look_at_host
@@ -14,7 +16,14 @@ from .film import Film
 from .math.vec import RGB, Basis, Vec3, construct_basis, cross, dot, mag2, normalize
 from .options import RenderOptions
 from .render import RenderResult, RenderSession, RenderStatus
-from .scene.compile import SceneTables, compile_scene, from_numpy_scene
+from .scene.compile import (
+    SceneArrays,
+    SceneTables,
+    compile_scene,
+    from_numpy_scene,
+    scene_arrays,
+    tables_from_arrays,
+)
 from .scene.description import (
     MaterialDescription,
     PerspectiveCameraDescription,
@@ -48,6 +57,7 @@ __all__ = [
     "RenderSession",
     "RenderStatus",
     "SDFDescription",
+    "SceneArrays",
     "SceneDescription",
     "SceneTables",
     "SphereDescription",
@@ -63,7 +73,9 @@ __all__ = [
     "look_at_host",
     "mag2",
     "normalize",
+    "scene_arrays",
     "sdf_gallery",
     "sphere_grid",
     "sphere_on_plane",
+    "tables_from_arrays",
 ]

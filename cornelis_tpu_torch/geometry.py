@@ -8,17 +8,88 @@ self-intersection guard (COMPAT.md R10) rejects hits closer than
 T_MIN_SCALE * (1 + |o|_inf) in world units. SDF primitives (sphere, box,
 torus under rotation and uniform scale) are sphere-traced for
 SPHERE_TRACE_STEPS steps, in the JAX package's order of operations.
+
+`intersect_scene` and `occluded` are the closest-hit and any-hit tests
+over a `SceneArrays`, differentiable (the closest hit) in the sphere
+centres and radii and the plane points: the wavefront's, and through
+ops/megakernel.py's `intersect` and `occluded` the kernel's plain
+version's.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
-from .math.vec import Vec3, construct_basis, dot, is_almost_zero, mag2, normalize, ray_at
+from .math.vec import (
+    Vec3,
+    construct_basis,
+    dot,
+    is_almost_zero,
+    mag2,
+    maximum,
+    minimum,
+    normalize,
+    ray_at,
+    take,
+)
 
 INF = math.inf
+
+# Primitive kinds of Hit.kind: NEE weights an emitter hit by whether light
+# sampling could have picked it (spheres and planes, not SDFs).
+KIND_NONE = -1
+KIND_SPHERE = 0
+KIND_PLANE = 1
+KIND_SDF = 2
+
+
+class Hit(NamedTuple):
+    """Closest hit of a batch of rays (IntersectionData, Geometry.hpp:7-19):
+    t, point, shading normal, material id, hit mask, primitive kind and
+    index within its kind's table (-1 on a miss and for SDFs)."""
+
+    t: torch.Tensor
+    position: Vec3
+    normal: Vec3
+    material: torch.Tensor
+    hit: torch.Tensor
+    kind: torch.Tensor
+    prim: torch.Tensor
+
+
+def _empty_hit(like: torch.Tensor) -> Hit:
+    """All-miss hit record (t = inf, Geometry.cpp:7-12)."""
+    zeros = torch.zeros_like(like)
+    minus_one = torch.full(like.shape, -1, dtype=torch.int64, device=like.device)
+    return Hit(
+        t=torch.full_like(like, INF),
+        position=Vec3(zeros, zeros, zeros),
+        normal=Vec3(zeros, zeros, zeros),
+        material=torch.zeros_like(minus_one),
+        hit=torch.zeros_like(like, dtype=torch.bool),
+        kind=minus_one,
+        prim=minus_one,
+    )
+
+
+def _update_closest(best: Hit, t, p: Vec3, n: Vec3, material, valid, kind: int = KIND_NONE,
+                    prim=-1) -> Hit:
+    """Take the candidate where it is valid and strictly closer."""
+    closer = valid & (best.t > t)
+    sel = lambda a, b: torch.where(closer, a, b)
+    return Hit(
+        t=sel(t, best.t),
+        position=Vec3(*(sel(a, b) for a, b in zip(p, best.position))),
+        normal=Vec3(*(sel(a, b) for a, b in zip(n, best.normal))),
+        material=sel(material, best.material),
+        hit=best.hit | closer,
+        kind=sel(kind, best.kind),
+        prim=sel(prim, best.prim),
+    )
+
 
 # Scale-aware self-intersection guard (geometry.py:119-134 of the JAX
 # package): a few float32 ulps of the origin's coordinate magnitude.
@@ -60,7 +131,7 @@ def sphere_candidate_t(o: Vec3, d: Vec3, center: Vec3, radius, tmin, pre=None):
 
     disc = -v + (u * u) / 4.0
     has_root = disc >= 0.0
-    shift = torch.sqrt(torch.clamp_min(disc, 1e-12))
+    shift = torch.sqrt(maximum(disc, 1e-12))
     t0 = -u / 2.0 - shift
     t1 = -u / 2.0 + shift
     t0 = torch.where(t0 < tmin, INF, t0)
@@ -125,18 +196,18 @@ def sdf_distance(kind: int, params, q: Vec3) -> torch.Tensor:
     evaluated; the JAX function computes all three and selects, which
     gives the same values."""
     if kind == SDF_KIND_SPHERE:
-        return torch.sqrt(torch.clamp_min(mag2(q), 1e-20)) - params[0]
+        return torch.sqrt(maximum(mag2(q), 1e-20)) - params[0]
     if kind == SDF_KIND_BOX:
         ax = torch.abs(q.x) - params[0]
         ay = torch.abs(q.y) - params[1]
         az = torch.abs(q.z) - params[2]
-        mx, my, mz = (torch.clamp_min(a, 0.0) for a in (ax, ay, az))
+        mx, my, mz = (maximum(a, 0.0) for a in (ax, ay, az))
         outside = torch.sqrt(mx * mx + my * my + mz * mz)
-        inside = torch.clamp_max(torch.maximum(ax, torch.maximum(ay, az)), 0.0)
+        inside = minimum(torch.maximum(ax, torch.maximum(ay, az)), 0.0)
         return outside + inside
     if kind == SDF_KIND_TORUS:
-        ring = torch.sqrt(torch.clamp_min(q.x * q.x + q.z * q.z, 1e-20)) - params[0]
-        return torch.sqrt(torch.clamp_min(ring * ring + q.y * q.y, 1e-20)) - params[1]
+        ring = torch.sqrt(maximum(q.x * q.x + q.z * q.z, 1e-20)) - params[0]
+        return torch.sqrt(maximum(ring * ring + q.y * q.y, 1e-20)) - params[1]
     raise ValueError(f"unknown SDF kind {kind}")
 
 
@@ -224,7 +295,7 @@ def _march(o: Vec3, dn: Vec3, center: Vec3, world_dist, lim_w=None):
             done = done | stop
         steps += ~done
         dist = world_dist(ray_at(o, dn, t) - center)
-        eps = SDF_EPS * torch.clamp_min(t, 1.0)
+        eps = SDF_EPS * maximum(t, 1.0)
         done = done | (torch.abs(dist) < eps) | (t > SDF_MAX_T)
         t = torch.where(done, t, t + torch.maximum(dist, 0.5 * eps))
     if lim_w is not None:  # no final test past the limit after the last step
@@ -271,12 +342,12 @@ def sdf_candidate(o: Vec3, d: Vec3, kind: int, center: Vec3, params, rot=None, s
     t, _steps, stopped = _march(o, dn, center, world_dist, _world_limit(limit, dlen))
 
     p = ray_at(o, dn, t)
-    eps = SDF_EPS * torch.clamp_min(t, 1.0)
+    eps = SDF_EPS * maximum(t, 1.0)
     valid = (
         ~deg
         & ~stopped
         & (torch.abs(world_dist(p - center)) < eps)
-        & (t > torch.clamp_min(min_hit_t(o), SDF_MIN_T))
+        & (t > maximum(min_hit_t(o), SDF_MIN_T))
         & (t <= SDF_MAX_T)
     )
     n = None
@@ -285,3 +356,111 @@ def sdf_candidate(o: Vec3, d: Vec3, kind: int, center: Vec3, params, rot=None, s
         n = sdf_normal(kind, params, to_local(p - center), h_local)
         n = _rot3_t(rot, n) if rot is not None else n
     return torch.where(valid, t / dlen, INF), p, n, valid
+
+
+def sphere_candidate(o: Vec3, d: Vec3, center: Vec3, radius, tmin=None):
+    """Ray/sphere quadratic (Geometry.cpp:50-106) with its point and
+    normal: (t, p, n, valid), t = +inf on a miss."""
+    if tmin is None:
+        tmin = min_hit_t(o, d)
+    t, valid = sphere_candidate_t(o, d, center, radius, tmin)
+    p = ray_at(o, d, torch.where(valid, t, 0.0))
+    return t, p, normalize(p - center), valid
+
+
+def sdf_objects(scene):
+    """Per SDF: (kind as an int, centre, params, material, rotation, scale)."""
+    kinds = scene.sdf_kind.tolist()
+    for k, kind in enumerate(kinds):
+        center = Vec3(scene.sdf_center.x[k], scene.sdf_center.y[k], scene.sdf_center.z[k])
+        yield (int(kind), center, scene.sdf_params[k], scene.sdf_material[k],
+               scene.sdf_rot[k], scene.sdf_scale[k])
+
+
+def intersect_scene(scene, o: Vec3, d: Vec3) -> Hit:
+    """Closest hit against every sphere, then every plane, then every SDF
+    of a SceneArrays (Render.cpp:110-150; geometry.py:432-573 of the JAX
+    package). Spheres are scanned in two phases: t and the winner's
+    index, then one gather of the winner's centre, through which the
+    point and normal stay differentiable in it."""
+    best = _empty_hit(o.x)
+    tmin = min_hit_t(o, d)
+
+    if scene.num_spheres:
+        deg = _degenerate(d)
+        a = torch.where(deg, 1.0, mag2(d))
+        c, radius = scene.sphere_center, scene.sphere_radius
+        s_t, s_idx = best.t, best.prim
+        for s in range(scene.num_spheres):
+            t, valid = sphere_candidate_t(
+                o, d, Vec3(c.x[s], c.y[s], c.z[s]), radius[s], tmin, pre=(deg, a)
+            )
+            closer = valid & (s_t > t)
+            s_t = torch.where(closer, t, s_t)
+            s_idx = torch.where(closer, s, s_idx)
+        sp_hit = s_idx >= 0
+        gi = s_idx.clamp_min(0)
+        p = ray_at(o, d, torch.where(sp_hit, s_t, 0.0))
+        # Mask before normalize: a miss would normalize the zero vector,
+        # and its NaN would reach the gradient through the masked branch.
+        n = normalize(Vec3(
+            torch.where(sp_hit, p.x - take(c.x, gi), 1.0),
+            torch.where(sp_hit, p.y - take(c.y, gi), 0.0),
+            torch.where(sp_hit, p.z - take(c.z, gi), 0.0),
+        ))
+        sel = lambda v: torch.where(sp_hit, v, 0.0)
+        best = Hit(
+            t=s_t,
+            position=Vec3(sel(p.x), sel(p.y), sel(p.z)),
+            normal=Vec3(sel(n.x), sel(n.y), sel(n.z)),
+            material=torch.where(sp_hit, take(scene.sphere_material, gi), 0),
+            hit=sp_hit,
+            kind=torch.where(sp_hit, KIND_SPHERE, best.kind),
+            prim=s_idx,
+        )
+
+    nrm, pt = scene.plane_normal, scene.plane_point
+    for j in range(scene.num_planes):
+        normal = Vec3(nrm.x[j], nrm.y[j], nrm.z[j])
+        t, p, n, valid = plane_candidate(
+            o, d, normal, Vec3(pt.x[j], pt.y[j], pt.z[j]), scene.plane_width[j],
+            scene.plane_height[j], tmin=tmin,
+        )
+        best = _update_closest(best, t, p, n, scene.plane_material[j], valid, KIND_PLANE, j)
+
+    if scene.num_sdfs:
+        for kind, center, params, material, rot, scale in sdf_objects(scene):
+            t, p, n, valid = sdf_candidate(o, d, kind, center, params, rot=rot, scale=scale)
+            best = _update_closest(best, t, p, n, material, valid, KIND_SDF)
+    return best
+
+
+@torch.no_grad()
+def occluded(scene, o: Vec3, d: Vec3, t_max) -> torch.Tensor:
+    """True where some primitive of a SceneArrays lies along d closer than
+    t_max (geometry.py:576-657 of the JAX package): the shadow ray's
+    any-hit test. A boolean carries no gradient, so no graph is kept."""
+    occ = torch.zeros_like(o.x, dtype=torch.bool)
+    tmin = min_hit_t(o, d)
+    deg = _degenerate(d)
+    a = torch.where(deg, 1.0, mag2(d))
+    c, radius = scene.sphere_center, scene.sphere_radius
+    for s in range(scene.num_spheres):
+        t, valid = sphere_candidate_t(
+            o, d, Vec3(c.x[s], c.y[s], c.z[s]), radius[s], tmin, pre=(deg, a)
+        )
+        occ = occ | (valid & (t < t_max))
+    nrm, pt = scene.plane_normal, scene.plane_point
+    for j in range(scene.num_planes):
+        t, _p, _n, valid = plane_candidate(
+            o, d, Vec3(nrm.x[j], nrm.y[j], nrm.z[j]), Vec3(pt.x[j], pt.y[j], pt.z[j]),
+            scene.plane_width[j], scene.plane_height[j], tmin=tmin,
+        )
+        occ = occ | (valid & (t < t_max))
+    if scene.num_sdfs:
+        for kind, center, params, _material, rot, scale in sdf_objects(scene):
+            t, _p, _n, valid = sdf_candidate(
+                o, d, kind, center, params, rot=rot, scale=scale, with_normal=False
+            )
+            occ = occ | (valid & (t < t_max))
+    return occ

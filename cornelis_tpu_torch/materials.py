@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from .math.vec import PI, RGB, Basis, Vec3, dot, is_almost_zero, normalize
+from .math.vec import PI, RGB, Basis, Vec3, dot, is_almost_zero, maximum, normalize, take
 from .rng import hemisphere_pdf, hemisphere_sample_basis
 
 Tensor = torch.Tensor
@@ -32,9 +32,9 @@ class MaterialParams(NamedTuple):
     ior: Tensor
 
 
-def gather_materials(table: Tensor, ids: Tensor) -> MaterialParams:
+def gather_material_rows(table: Tensor, ids: Tensor) -> MaterialParams:
     """Rows of an (M, 11) material table by per-ray id."""
-    rows = table[ids]
+    rows = take(table, ids)
     col = lambda i: rows[:, i]
     return MaterialParams(
         albedo=RGB(col(0), col(1), col(2)),
@@ -43,6 +43,25 @@ def gather_materials(table: Tensor, ids: Tensor) -> MaterialParams:
         roughness=col(9),
         ior=col(10),
     )
+
+
+def gather_materials(scene, ids: Tensor) -> MaterialParams:
+    """The materials of a SceneArrays by per-ray id (materials.py:104-121
+    of the JAX package). The fields are stacked into one (M, 11) table
+    and gathered once (`take`), so the backward is one index_add_ into it;
+    the JAX package's one-hot matmul backward (`_take_rows`) worked around
+    the TPU's scatter and is not ported."""
+    table = torch.stack(
+        [*scene.mat_albedo, *scene.mat_emission, *scene.mat_tint, scene.mat_roughness,
+         scene.mat_ior],
+        dim=1,
+    )
+    return gather_material_rows(table, ids)
+
+
+def emission(params: MaterialParams) -> RGB:
+    """StandardMaterial::emission (Materials.hpp:333): position-independent."""
+    return params.emission
 
 
 # -- Burley roughness remaps (Materials.hpp:296-302) -----------------------
@@ -65,7 +84,7 @@ def distribution_gtr2(cos_theta_h: Tensor, alpha: Tensor) -> Tensor:
     alpha2 = alpha * alpha
     c2 = cos_theta_h * cos_theta_h
     denom = (1.0 - c2) + alpha2 * c2
-    d = (alpha2 / (2.0 * PI)) / torch.clamp_min(denom * denom, 1e-18)
+    d = (alpha2 / (2.0 * PI)) / maximum(denom * denom, 1e-18)
     return torch.where(is_almost_zero(alpha2), 1.0, d)
 
 
@@ -97,16 +116,16 @@ def schlick(cos_theta: Tensor, refidx1, refidx2) -> Tensor:
 def glossy_eval(wi: Vec3, wo: Vec3, n: Vec3, tint: RGB, alpha: Tensor, ior: Tensor) -> RGB:
     """tint * F D G / (4 cosO cosI); black when either cosine is almost
     zero or the half-vector degenerates (Materials.hpp:130-154)."""
-    cos_o = torch.clamp_min(dot(wo, n), 0.0)
-    cos_i = torch.clamp_min(dot(wi, n), 0.0)
+    cos_o = maximum(dot(wo, n), 0.0)
+    cos_i = maximum(dot(wi, n), 0.0)
     dead = is_almost_zero(cos_o) | is_almost_zero(cos_i)
 
-    sin_o = torch.sqrt(torch.clamp_min(1.0 - cos_o * cos_o, 1e-12))
-    sin_i = torch.sqrt(torch.clamp_min(1.0 - cos_i * cos_i, 1e-12))
+    sin_o = torch.sqrt(maximum(1.0 - cos_o * cos_o, 1e-12))
+    sin_i = torch.sqrt(maximum(1.0 - cos_i * cos_i, 1e-12))
 
     h = normalize(wi + wo)
     h_zero = is_almost_zero(h.x) & is_almost_zero(h.y) & is_almost_zero(h.z)
-    cos_h = torch.clamp_min(dot(h, n), 0.0)
+    cos_h = maximum(dot(h, n), 0.0)
 
     safe_cos_o = torch.where(dead, 1.0, cos_o)
     safe_cos_i = torch.where(dead, 1.0, cos_i)
@@ -125,8 +144,8 @@ def glossy_sample(wo: Vec3, x0: Tensor, x1: Tensor, basis: Basis, alpha: Tensor)
     alpha2 = alpha * alpha
     a = 1.0 - x1
     b = 1.0 + (alpha2 - 1.0) * x1
-    cos_h = torch.sqrt(torch.clamp_min(a / b, 1e-12))
-    sin_h = torch.sqrt(torch.clamp_min(1.0 - cos_h * cos_h, 1e-12))
+    cos_h = torch.sqrt(maximum(a / b, 1e-12))
+    sin_h = torch.sqrt(maximum(1.0 - cos_h * cos_h, 1e-12))
     phi = 2.0 * PI * x0
 
     h = normalize(
@@ -147,7 +166,7 @@ def glossy_pdf(wi: Vec3, wo: Vec3, n: Vec3, alpha: Tensor) -> Tensor:
     """D |cos(theta_h)| / (4 wi.h), with the reference's fallbacks: 1 when
     cos(theta_h) ~ 0, D|cos| when wi.h ~ 0 (Materials.hpp:177-188)."""
     h = normalize(wi + wo)
-    cos_h = torch.clamp_min(dot(h, n), 0.0)
+    cos_h = maximum(dot(h, n), 0.0)
     d = distribution_gtr2(cos_h, alpha)
     pdf_h = d * torch.abs(cos_h)
     wi_dot_h = dot(wi, h)
@@ -185,8 +204,8 @@ def oren_nayar_eval(
 
     cos_i = wi.z
     cos_o = wo.z
-    sin_i = torch.sqrt(torch.clamp_min(1.0 - cos_i * cos_i, 1e-12))
-    sin_o = torch.sqrt(torch.clamp_min(1.0 - cos_o * cos_o, 1e-12))
+    sin_i = torch.sqrt(maximum(1.0 - cos_i * cos_i, 1e-12))
+    sin_o = torch.sqrt(maximum(1.0 - cos_o * cos_o, 1e-12))
 
     safe_sin_i = torch.where(sin_i > 0.0, sin_i, 1.0)
     safe_sin_o = torch.where(sin_o > 0.0, sin_o, 1.0)
@@ -200,9 +219,9 @@ def oren_nayar_eval(
         & (torch.abs(cphi_o) <= 1.0)
     )
     cos_dphi = cphi_i * cphi_o + torch.sqrt(
-        torch.clamp_min((1.0 - cphi_i * cphi_i) * (1.0 - cphi_o * cphi_o), 1e-12)
+        maximum((1.0 - cphi_i * cphi_i) * (1.0 - cphi_o * cphi_o), 1e-12)
     )
-    term = torch.where(valid, torch.clamp_min(cos_dphi, 0.0), 0.0)
+    term = torch.where(valid, maximum(cos_dphi, 0.0), 0.0)
 
     a, b = oren_nayar_ab(sigma)
     scale = (a + b * term * sin_i * sin_o) / PI
@@ -218,7 +237,7 @@ def layered_eval(wi: Vec3, wo: Vec3, n: Vec3, params: MaterialParams) -> RGB:
     alpha = glossy_alpha(params.roughness)
     d_f = oren_nayar_eval(wi, wo, params.albedo, sigma)
     g_f = glossy_eval(wi, wo, n, params.tint, alpha, params.ior)
-    w = 1.0 - schlick(torch.clamp_min(dot(n, wi), 0.0), 1.0, params.ior)
+    w = 1.0 - schlick(maximum(dot(n, wi), 0.0), 1.0, params.ior)
     return d_f * w + g_f
 
 
@@ -235,23 +254,30 @@ def layered_pdf_true(wi: Vec3, wo: Vec3, n: Vec3, params: MaterialParams) -> Ten
     return 0.5 * (hemisphere_pdf() + glossy_sampler_density(wi, wo, n, alpha))
 
 
+def layered_sample_direction(
+    wo: Vec3, x0: Tensor, x1: Tensor, x2: Tensor, basis: Basis, params: MaterialParams
+) -> Vec3:
+    """The direction layered_sample draws: the diffuse layer's on x2 < 0.5,
+    else the glossy one's."""
+    alpha = glossy_alpha(params.roughness)
+    choose_diffuse = x2 < 0.5
+
+    wi_d = hemisphere_sample_basis(x0, x1, basis)
+    wi_g = glossy_sample(wo, x0, x1, basis, alpha)
+    return Vec3(
+        torch.where(choose_diffuse, wi_d.x, wi_g.x),
+        torch.where(choose_diffuse, wi_d.y, wi_g.y),
+        torch.where(choose_diffuse, wi_d.z, wi_g.z),
+    )
+
+
 def layered_sample(
     wo: Vec3, x0: Tensor, x1: Tensor, x2: Tensor, basis: Basis, params: MaterialParams
 ):
     """Sample the layered BRDF (Materials.hpp:279-293): the diffuse layer on
     x2 < 0.5. Returns (wi, pdf, f) with the averaged layered pdf and the
     full layered eval at wi."""
-    alpha = glossy_alpha(params.roughness)
-    choose_diffuse = x2 < 0.5
-
-    wi_d = hemisphere_sample_basis(x0, x1, basis)
-    wi_g = glossy_sample(wo, x0, x1, basis, alpha)
-    wi = Vec3(
-        torch.where(choose_diffuse, wi_d.x, wi_g.x),
-        torch.where(choose_diffuse, wi_d.y, wi_g.y),
-        torch.where(choose_diffuse, wi_d.z, wi_g.z),
-    )
-
+    wi = layered_sample_direction(wo, x0, x1, x2, basis, params)
     pdf = layered_pdf(wi, wo, basis.n, params)
     f = layered_eval(wi, wo, basis.n, params)
     return wi, pdf, f

@@ -28,28 +28,13 @@ from typing import Optional
 import torch
 
 from ..camera import camera_from_row, generate_rays
-from ..geometry import (
-    _degenerate,
-    min_hit_t,
-    plane_candidate,
-    sdf_candidate,
-    sphere_candidate_t,
-)
+from ..geometry import KIND_PLANE, KIND_SPHERE, intersect_scene
+from ..geometry import occluded as geometry_occluded
 from ..integrator import BOUNCE_EPSILON, nee_clamp_at_depth, russian_roulette_probability
-from ..materials import gather_materials, layered_eval, layered_pdf_true, layered_sample
-from ..math.vec import (
-    PI,
-    RGB,
-    Vec3,
-    construct_basis,
-    dot,
-    mag2,
-    normalize,
-    ray_at,
-    where,
-)
+from ..materials import gather_material_rows, layered_eval, layered_pdf_true, layered_sample
+from ..math.vec import PI, RGB, Vec3, construct_basis, dot, where
 from ..sampling import hash32, sobol_pair
-from ..scene.compile import SDF_COLS, SceneTables
+from ..scene.compile import SDF_COLS, SceneTables, scene_arrays
 from . import lights as L
 from .build import launch, load_library
 from .threefry import pair_uniforms
@@ -70,105 +55,24 @@ def index_bits_for(spp_total: int) -> int:
     return max(1, (spp_total - 1).bit_length())
 
 
-def _sdf_rows(tables: SceneTables):
-    """Per SDF row: (kind, center, params, material, rot, scale) with the
-    kind an int and the rest 0-dim float32 tensors."""
-    for row in tables.sdfs:
-        yield (int(row[0]), Vec3(row[1], row[2], row[3]), row[4:8], row[8],
-               row[9:18].view(3, 3), row[18])
-
-
 def intersect(tables: SceneTables, o: Vec3, d: Vec3):
-    """Closest hit against the tables (`_intersect_const`): a t-only sphere
-    scan, one fetch of the winning sphere, the finite planes, then every
-    SDF sphere-traced; strict best_t > t updates. Returns (t, p, n,
-    material id, prim, hit), where prim is the unified index: sphere i ->
-    i, plane j -> S + j, SDF or miss -> -1 (SDF emitters are not light
-    sampled, so their MIS weight is 1)."""
-    tmin = min_hit_t(o, d)
-    deg = _degenerate(d)
-    a = torch.where(deg, 1.0, mag2(d))
-
-    best_t = torch.full_like(o.x, float("inf"))
-    best = torch.full(o.x.shape, -1, dtype=torch.int64, device=o.x.device)
-    for s, row in enumerate(tables.spheres):
-        t, valid = sphere_candidate_t(
-            o, d, Vec3(row[0], row[1], row[2]), row[3], tmin=tmin, pre=(deg, a)
-        )
-        closer = valid & (best_t > t)
-        best_t = torch.where(closer, t, best_t)
-        best = torch.where(closer, s, best)
-
-    hit = best >= 0
-    prim = best
-    zero = torch.zeros_like(o.x)
-    if len(tables.spheres):
-        win = tables.spheres[best.clamp_min(0)]
-        p = ray_at(o, d, torch.where(hit, best_t, 0.0))
-        # Mask before normalize: a miss would normalize the zero vector.
-        n = normalize(
-            Vec3(
-                torch.where(hit, p.x - win[:, 0], 1.0),
-                torch.where(hit, p.y - win[:, 1], 0.0),
-                torch.where(hit, p.z - win[:, 2], 0.0),
-            )
-        )
-        p = where(hit, p, Vec3(zero, zero, zero))
-        n = where(hit, n, Vec3(zero, zero, zero))
-        mid = torch.where(hit, win[:, 4].to(torch.int64), 0)
-    else:
-        p = n = Vec3(zero, zero, zero)
-        mid = torch.zeros_like(best)
-
-    n_sph = len(tables.spheres)
-    for j, row in enumerate(tables.planes):
-        normal = Vec3(row[0], row[1], row[2])
-        t, pp, _, valid = plane_candidate(
-            o, d, normal, Vec3(row[3], row[4], row[5]), row[6], row[7], tmin=tmin
-        )
-        closer = valid & (best_t > t)
-        best_t = torch.where(closer, t, best_t)
-        hit = hit | closer
-        p = where(closer, pp, p)
-        n = Vec3(*(torch.where(closer, c, nc) for c, nc in zip(normal, n)))
-        mid = torch.where(closer, row[8].to(torch.int64), mid)
-        prim = torch.where(closer, n_sph + j, prim)
-    for kind, center, params, smid, rot, scale in _sdf_rows(tables):
-        t, pp, nn, valid = sdf_candidate(o, d, kind, center, params, rot=rot, scale=scale)
-        closer = valid & (best_t > t)
-        best_t = torch.where(closer, t, best_t)
-        hit = hit | closer
-        p = where(closer, pp, p)
-        n = where(closer, nn, n)
-        mid = torch.where(closer, smid.to(torch.int64), mid)
-        prim = torch.where(closer, -1, prim)
-    return best_t, p, n, mid, prim, hit
+    """Closest hit against the tables (`_intersect_const`), which scans as
+    `geometry.intersect_scene` does: a t-only sphere scan, one fetch of the
+    winning sphere, the finite planes, then every SDF sphere-traced;
+    strict best_t > t updates. Returns (t, p, n, material id, prim, hit),
+    where prim is the unified index: sphere i -> i, plane j -> S + j, SDF
+    or miss -> -1 (SDF emitters are not light sampled, so their MIS
+    weight is 1)."""
+    hit = intersect_scene(scene_arrays(tables), o, d)
+    prim = torch.where(hit.kind == KIND_SPHERE, hit.prim, -1)
+    prim = torch.where(hit.kind == KIND_PLANE, tables.spheres.shape[0] + hit.prim, prim)
+    return hit.t, hit.position, hit.normal, hit.material, prim, hit.hit
 
 
 def occluded(tables: SceneTables, o: Vec3, d: Vec3, t_max: torch.Tensor) -> torch.Tensor:
-    """Any hit closer than t_max (`_occluded_const`): the t-only sphere
-    scan, the planes, then the SDFs."""
-    tmin = min_hit_t(o, d)
-    deg = _degenerate(d)
-    a = torch.where(deg, 1.0, mag2(d))
-    occ = torch.zeros_like(o.x, dtype=torch.bool)
-    for row in tables.spheres:
-        t, valid = sphere_candidate_t(
-            o, d, Vec3(row[0], row[1], row[2]), row[3], tmin=tmin, pre=(deg, a)
-        )
-        occ = occ | (valid & (t < t_max))
-    for row in tables.planes:
-        t, _p, _n, valid = plane_candidate(
-            o, d, Vec3(row[0], row[1], row[2]), Vec3(row[3], row[4], row[5]),
-            row[6], row[7], tmin=tmin,
-        )
-        occ = occ | (valid & (t < t_max))
-    for kind, center, params, _mid, rot, scale in _sdf_rows(tables):
-        t, _p, _n, valid = sdf_candidate(
-            o, d, kind, center, params, rot=rot, scale=scale, with_normal=False
-        )
-        occ = occ | (valid & (t < t_max))
-    return occ
+    """Any hit closer than t_max (`_occluded_const`): `geometry.occluded`
+    on the tables."""
+    return geometry_occluded(scene_arrays(tables), o, d, t_max)
 
 
 def _draws(sampler, k0, k1, root, pixel, sample, index_bits):
@@ -331,7 +235,7 @@ def render_rays_reference(
             break
         t, p, n, mid, prim, hit = intersect(tables, o, d)
         active = active & hit
-        params = gather_materials(tables.materials, mid)
+        params = gather_material_rows(tables.materials, mid)
         contrib = tput * params.emission
         if n_lights:
             # MIS weight of an emitter reached by BSDF sampling, and the

@@ -50,7 +50,7 @@ class RenderSession:
         self.options = options or RenderOptions()
         self.options.validate()
         self.scene_description = scene
-        self.tables = compile_scene(scene).to(self.options.device)
+        self.tables = compile_scene(scene, device=self.options.device)
         # Two Threefry evaluations in small host torch ops: derive them once.
         self.key = key_row(self.options.seed)
         self.lights = None

@@ -109,3 +109,15 @@ def sobol_pair(
         bits_to_unit_float(owen_scramble(d0, group_key(1))),
         bits_to_unit_float(owen_scramble(d1, group_key(2))),
     )
+
+
+def sobol_uniforms(
+    pixel_seed: torch.Tensor, sample_idx: torch.Tensor, stream: Word, num: int,
+    index_bits: int = 32,
+) -> torch.Tensor:
+    """`num` Owen-scrambled Sobol draws per lane, (N, num) float32: pairs
+    0, 1, ... of `sobol_pair`, the last one cut to `num`."""
+    cols = []
+    for pair in range((num + 1) // 2):
+        cols.extend(sobol_pair(pixel_seed, sample_idx, stream, pair, index_bits))
+    return torch.stack(cols[:num], dim=-1)

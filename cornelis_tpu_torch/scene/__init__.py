@@ -1,4 +1,11 @@
-from .compile import SceneTables, compile_scene, from_numpy_scene
+from .compile import (
+    SceneArrays,
+    SceneTables,
+    compile_scene,
+    from_numpy_scene,
+    scene_arrays,
+    tables_from_arrays,
+)
 from .description import (
     MaterialDescription,
     PerspectiveCameraDescription,
@@ -15,6 +22,7 @@ __all__ = [
     "PerspectiveCameraDescription",
     "PlaneDescription",
     "SDFDescription",
+    "SceneArrays",
     "SceneDescription",
     "SceneTables",
     "SphereDescription",
@@ -22,6 +30,8 @@ __all__ = [
     "cornell_box",
     "cornell_panel",
     "from_numpy_scene",
+    "scene_arrays",
     "sphere_grid",
     "sphere_on_plane",
+    "tables_from_arrays",
 ]

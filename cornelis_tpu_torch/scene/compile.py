@@ -2,7 +2,7 @@
 
 Counterpart of `cornelis_tpu/scene/compile.py` together with
 `cornelis_tpu/ops/pallas_dynamic.py::_scene_tables`: the same values in the
-same column layout, as four float32 tensors on one device.
+same column layout, as five float32 tensors on one device.
 
   camera     (12,)    eye, corner, u, v (3 floats each)
   spheres    (S, 5)   cx, cy, cz, radius, material
@@ -14,6 +14,12 @@ same column layout, as four float32 tensors on one device.
 Material ids and SDF kinds (geometry.SDF_KIND_*) are stored as floats. The kernel takes the tables as
 operands, so one build serves every scene (the TPU baked them in as
 literals; that was a Mosaic constraint, not a property of the renderer).
+The tables land on the card unless the caller asks for another device.
+
+The wavefront (integrator.py) and the differentiable mode read the scene
+as `SceneArrays`, the JAX package's field by field layout: `scene_arrays`
+views the tables so, and `tables_from_arrays` packs a scene (an optimised
+one, say) back into tables for the kernel.
 """
 
 from __future__ import annotations
@@ -23,7 +29,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..camera import look_at_host
+from ..camera import Camera, camera_from_row, look_at_host
+from ..math.vec import Vec3
 from .description import SDF_KINDS, SceneDescription
 
 SDF_COLS = 19
@@ -38,6 +45,107 @@ class SceneTables(NamedTuple):
 
     def to(self, device) -> "SceneTables":
         return SceneTables(*(t.to(device) for t in self))
+
+
+class SceneArrays(NamedTuple):
+    """A compiled scene field by field, as `cornelis_tpu.scene.compile.
+    SceneArrays`: float32 tensors (Vec3s of them for 3-vectors) that
+    autograd can differentiate, int64 material ids and SDF kinds. Spheres
+    (S,), planes (P,), SDFs (K,) with params (K, 4) and world-to-local
+    rotations (K, 3, 3), materials (M,)."""
+
+    camera: Camera
+    sphere_center: Vec3
+    sphere_radius: torch.Tensor
+    sphere_material: torch.Tensor
+    plane_normal: Vec3
+    plane_point: Vec3
+    plane_width: torch.Tensor
+    plane_height: torch.Tensor
+    plane_material: torch.Tensor
+    sdf_kind: torch.Tensor
+    sdf_center: Vec3
+    sdf_params: torch.Tensor
+    sdf_material: torch.Tensor
+    sdf_rot: torch.Tensor
+    sdf_scale: torch.Tensor
+    mat_albedo: Vec3
+    mat_emission: Vec3
+    mat_tint: Vec3
+    mat_roughness: torch.Tensor
+    mat_ior: torch.Tensor
+
+    @property
+    def num_spheres(self) -> int:
+        return self.sphere_radius.shape[0]
+
+    @property
+    def num_planes(self) -> int:
+        return self.plane_width.shape[0]
+
+    @property
+    def num_sdfs(self) -> int:
+        return self.sdf_kind.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.mat_roughness.device
+
+
+def scene_arrays(tables: SceneTables) -> SceneArrays:
+    """The tables as SceneArrays: column views, ids and kinds as int64."""
+    sp, pl, sd, m = tables.spheres, tables.planes, tables.sdfs, tables.materials
+    vec = lambda t, i: Vec3(t[:, i], t[:, i + 1], t[:, i + 2])
+    ids = lambda col: col.to(torch.int64)
+    return SceneArrays(
+        camera=camera_from_row(tables.camera),
+        sphere_center=vec(sp, 0),
+        sphere_radius=sp[:, 3],
+        sphere_material=ids(sp[:, 4]),
+        plane_normal=vec(pl, 0),
+        plane_point=vec(pl, 3),
+        plane_width=pl[:, 6],
+        plane_height=pl[:, 7],
+        plane_material=ids(pl[:, 8]),
+        sdf_kind=ids(sd[:, 0]),
+        sdf_center=vec(sd, 1),
+        sdf_params=sd[:, 4:8],
+        sdf_material=ids(sd[:, 8]),
+        sdf_rot=sd[:, 9:18].reshape(-1, 3, 3),
+        sdf_scale=sd[:, 18],
+        mat_albedo=vec(m, 0),
+        mat_emission=vec(m, 3),
+        mat_tint=vec(m, 6),
+        mat_roughness=m[:, 9],
+        mat_ior=m[:, 10],
+    )
+
+
+def tables_from_arrays(scene: SceneArrays) -> SceneTables:
+    """SceneArrays packed into the kernel's tables (detached from any
+    gradient), on the scene's device."""
+    with torch.no_grad():
+        f = lambda t: t.to(torch.float32)
+        cam = scene.camera
+        camera = torch.stack(
+            [torch.as_tensor(c, dtype=torch.float32, device=scene.device)
+             for v in (cam.eye, cam.corner, cam.u, cam.v) for c in v]
+        )
+        cols = lambda *c: torch.stack([f(x) for x in c], dim=1).contiguous()
+        k = scene.num_sdfs
+        return SceneTables(
+            camera=camera,
+            spheres=cols(*scene.sphere_center, scene.sphere_radius, scene.sphere_material),
+            planes=cols(*scene.plane_normal, *scene.plane_point, scene.plane_width,
+                        scene.plane_height, scene.plane_material),
+            materials=cols(*scene.mat_albedo, *scene.mat_emission, *scene.mat_tint,
+                           scene.mat_roughness, scene.mat_ior),
+            sdfs=torch.cat(
+                [cols(scene.sdf_kind, *scene.sdf_center), f(scene.sdf_params).reshape(k, 4),
+                 cols(scene.sdf_material), f(scene.sdf_rot).reshape(k, 9), cols(scene.sdf_scale)],
+                dim=1,
+            ).contiguous(),
+        )
 
 
 def _decompose_trs(m):
@@ -76,8 +184,9 @@ def _material_id(obj) -> int:
     return obj.material if obj.material is not None else 0
 
 
-def compile_scene(descr: SceneDescription, device="cpu") -> SceneTables:
-    """Description -> tables on `device` (Scene.cpp:40-53 analog).
+def compile_scene(descr: SceneDescription, device="cuda") -> SceneTables:
+    """Description -> tables on `device`, the card unless the caller asks
+    for the CPU (Scene.cpp:40-53 analog).
 
     Objects with material=None use index 0, the default material the
     builder always installs (Scene.cpp:16,36). The kernel reads material
@@ -144,10 +253,11 @@ def compile_scene(descr: SceneDescription, device="cpu") -> SceneTables:
     )
 
 
-def from_numpy_scene(scene, device="cpu") -> SceneTables:
-    """The port's tables from a `cornelis_tpu` SceneArrays whose leaves are
-    numpy arrays (`jax.device_get(compile_scene(d))`). Reads attributes
-    only, so it needs no jax."""
+def from_numpy_scene(scene, device="cuda") -> SceneTables:
+    """The port's tables, on `device` (the card by default), from a
+    `cornelis_tpu` SceneArrays whose leaves are numpy arrays
+    (`jax.device_get(compile_scene(d))`). Reads attributes only, so it
+    needs no jax; `scene_arrays` of the result is the JAX scene in torch."""
     f = lambda a: np.asarray(a, np.float32)
     cam = scene.camera
     camera = np.concatenate(

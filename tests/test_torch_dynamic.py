@@ -55,7 +55,7 @@ OFFSETS = (0, 5, 9, 13)
 )
 def test_plain_k3_matches_pallas_dynamic(name, mode, sampler, bar):
     jdesc, tdesc = scenes(name)
-    jscene, tables = jcompile(jdesc), compile_scene(tdesc)
+    jscene, tables = jcompile(jdesc), compile_scene(tdesc, device="cpu")
     key = jax.random.key(DEFAULT_SEED)
     ours, theirs = [], []
     for off in OFFSETS:
@@ -91,7 +91,7 @@ def _pseudo(tables):
 
 @pytest.mark.parametrize("name", ["cornell_box", "cornell_panel", "mixed_panel"])
 def test_light_table_dyn_equals_jax_rows(name):
-    tables = from_numpy_scene(jax.device_get(jcompile(scenes(name)[0])))
+    tables = from_numpy_scene(jax.device_get(jcompile(scenes(name)[0])), device="cpu")
     pseudo = _pseudo(tables)
     got = lights.light_table_dyn(tables)
     rows = got.rows.numpy()
@@ -113,7 +113,7 @@ def test_light_table_dyn_equals_jax_rows(name):
 
 
 def test_doubling_emission_doubles_the_image():
-    tables = compile_scene(scenes("cornell_box")[1])
+    tables = compile_scene(scenes("cornell_box")[1], device="cpu")
     kw = dict(KW, spp_chunk=4, sampler="sobol", mode="nee")
     base = render_chunk_dynamic(tables, key_row(6), 0, **kw)
     brighter = tables._replace(materials=tables.materials.clone())
@@ -126,7 +126,7 @@ def test_doubling_emission_doubles_the_image():
 def test_no_objects_raises_value_error():
     empty = SceneDescription()
     empty.add_material(scenes("cornell_box")[1].materials[0])
-    tables = compile_scene(empty)
+    tables = compile_scene(empty, device="cpu")
     with pytest.raises(ValueError):
         render_chunk_dynamic(tables, key_row(0), 0, sampler="sobol", mode="nee", **KW)
     # Mode "path" has no light table: every ray misses.
@@ -137,7 +137,7 @@ def test_no_objects_raises_value_error():
 def test_sdf_scene_raises_not_implemented():
     # The tables carry SDFs now, but K3 takes none, as
     # render_chunk_pallas_dynamic (pallas_dynamic.py:591) takes none.
-    tables = from_numpy_scene(jax.device_get(jcompile(sdf_gallery())))
+    tables = from_numpy_scene(jax.device_get(jcompile(sdf_gallery())), device="cpu")
     assert tables.sdfs.shape[0] == 3
     for mode in ("path", "nee"):
         with pytest.raises(NotImplementedError):
@@ -145,7 +145,7 @@ def test_sdf_scene_raises_not_implemented():
 
 
 def test_cpu_tables_launch_nothing():
-    tables = compile_scene(scenes("cornell_box")[1])
+    tables = compile_scene(scenes("cornell_box")[1], device="cpu")
     before = (megakernel.LAUNCHES, lights.LAUNCHES)
     render_chunk_dynamic(tables, key_row(1), 0, sampler="uniform", mode="nee", **dict(KW, max_depth=2))
     assert (megakernel.LAUNCHES, lights.LAUNCHES) == before

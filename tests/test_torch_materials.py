@@ -156,7 +156,7 @@ def test_layered_matches_oracle():
 
 def test_gather_materials_rows():
     table = torch.arange(3 * 11, dtype=torch.float32).view(3, 11)
-    p = TM.gather_materials(table, torch.tensor([2, 0]))
+    p = TM.gather_material_rows(table, torch.tensor([2, 0]))
     assert p.albedo.x.tolist() == [22.0, 0.0]
     assert p.emission.z.tolist() == [27.0, 5.0]
     assert p.ior.tolist() == [32.0, 10.0]

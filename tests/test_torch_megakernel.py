@@ -54,7 +54,7 @@ def agreement(a, b):
 def _render_pair(name, sampler):
     """(port image, JAX image) per offset for one scene, seed 19791102."""
     jscene = jcompile(getattr(jlib, name)())
-    tables = compile_scene(getattr(tlib, name)())
+    tables = compile_scene(getattr(tlib, name)(), device="cpu")
     key = jax.random.key(DEFAULT_SEED)
     out = []
     for off in OFFSETS:
@@ -120,7 +120,7 @@ def test_plain_sobol_matches_pallas_mean(sobol_pair):
 
 
 def test_cpu_wrapper_runs_plain_version_without_counting():
-    tables = compile_scene(tlib.cornell_box())
+    tables = compile_scene(tlib.cornell_box(), device="cpu")
     before = megakernel.LAUNCHES
     a = megakernel.render_rays(tables, 0, 5, 8, 8, 2, 3, 4)
     b = megakernel.render_rays_reference(tables, 0, 5, 8, 8, 2, 3, 4, "cpu")
@@ -129,7 +129,7 @@ def test_cpu_wrapper_runs_plain_version_without_counting():
 
 
 def test_chunk_sums_samples_per_pixel():
-    tables = compile_scene(tlib.sphere_on_plane())
+    tables = compile_scene(tlib.sphere_on_plane(), device="cpu")
     rays = megakernel.render_rays_reference(tables, 0, 9, 4, 3, 5, 2, 4, "cpu")
     chunk = megakernel.render_chunk(
         tables, (0, 9, 0), 2, width=4, height=3, spp_chunk=5, spp_total=8, max_depth=4
@@ -140,7 +140,7 @@ def test_chunk_sums_samples_per_pixel():
 def test_samples_are_chunk_invariant():
     # Ray (pixel, sample) draws depend on the sample index only, not on
     # how samples are split into chunks.
-    tables = compile_scene(tlib.cornell_box())
+    tables = compile_scene(tlib.cornell_box(), device="cpu")
     whole = megakernel.render_rays_reference(tables, 0, 1, 4, 4, 4, 0, 6, "cpu").view(16, 4, 3)
     part = megakernel.render_rays_reference(tables, 0, 1, 4, 4, 2, 2, 6, "cpu").view(16, 2, 3)
     torch.testing.assert_close(whole[:, 2:], part, rtol=0, atol=0)
@@ -157,7 +157,7 @@ def test_samples_are_chunk_invariant():
     ],
 )
 def test_wrapper_rejects_bad_tables(field, bad):
-    tables = compile_scene(tlib.cornell_box())._replace(**{field: bad})
+    tables = compile_scene(tlib.cornell_box(), device="cpu")._replace(**{field: bad})
     with pytest.raises(ValueError):
         megakernel.render_rays(tables, 0, 1, 4, 4, 1, 0, 2)
 
@@ -168,7 +168,7 @@ def test_wrapper_rejects_bad_tables(field, bad):
 def test_cpu_tables_run_plain_version(mode, sampler):
     # The tables' device alone decides: CPU tables run the plain version
     # and launch nothing.
-    tables = compile_scene(tlib.cornell_box())
+    tables = compile_scene(tlib.cornell_box(), device="cpu")
     key = key_row(5)
     before = megakernel.LAUNCHES
     chunk = megakernel.render_chunk(

@@ -86,7 +86,7 @@ def pair(request):
     name, sampler = request.param
     jdesc, tdesc = scenes(name)
     jscene = jcompile(jdesc)
-    tables = compile_scene(tdesc)
+    tables = compile_scene(tdesc, device="cpu")
     key = jax.random.key(DEFAULT_SEED)
     out = []
     for off in OFFSETS:
@@ -124,7 +124,7 @@ def test_nee_plain_version_matches_pallas_mean(pair):
 
 def test_mixed_scene_is_carried_over_exactly():
     jdesc, tdesc = scenes("mixed_panel")
-    a = compile_scene(tdesc)
+    a = compile_scene(tdesc, device="cpu")
     b = jax.device_get(jcompile(jdesc))
     np.testing.assert_array_equal(a.spheres[:, 3].numpy(), np.asarray(b.sphere_radius))
     assert a.planes.shape == (2, 9) and a.spheres.shape == (1, 5)

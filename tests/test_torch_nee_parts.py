@@ -47,7 +47,7 @@ W = H = 16
 
 def _tables(name):
     jdesc, tdesc = scenes(name)
-    return jcompile(jdesc), compile_scene(tdesc)
+    return jcompile(jdesc), compile_scene(tdesc, device="cpu")
 
 
 @pytest.mark.parametrize("name,bar", [("mixed_panel", 0.99), ("cornell_box", 0.90)])
@@ -72,7 +72,7 @@ def test_light_table_equals_jax_rows(name):
     jscene = jcompile(scenes(name)[0])
     host = scene_to_host(jscene)
     expect = _light_table(host)
-    got = lights.light_table(from_numpy_scene(jax.device_get(jscene)))
+    got = lights.light_table(from_numpy_scene(jax.device_get(jscene), device="cpu"))
     rows = got.rows.numpy()
     assert rows.shape == (len(expect), lights.LIGHT_COLS)
     f32 = np.float32
@@ -89,7 +89,7 @@ def test_light_table_equals_jax_rows(name):
 
 
 def test_light_table_override_and_no_emitter():
-    tables = compile_scene(cornell_box())
+    tables = compile_scene(cornell_box(), device="cpu")
     assert lights.light_table(tables, 123.5).clamp.item() == 123.5
     assert lights.light_table(tables, math.inf).clamp.item() == math.inf
     dark = tables._replace(materials=tables.materials.clone())
@@ -99,7 +99,7 @@ def test_light_table_override_and_no_emitter():
 
 
 def _clamped(nee_clamp):
-    tables = compile_scene(cornell_box())
+    tables = compile_scene(cornell_box(), device="cpu")
     return megakernel.render_chunk(
         tables, key_row(DEFAULT_SEED), 0, width=W, height=H, spp_chunk=2, spp_total=2,
         max_depth=8, sampler="sobol", mode="nee", nee_clamp=nee_clamp,
@@ -126,7 +126,7 @@ def _negative_emitter():
 
 def test_scene_with_nothing_to_sample_matches_pallas():
     jdesc, tdesc = _negative_emitter()
-    tables = compile_scene(tdesc)
+    tables = compile_scene(tdesc, device="cpu")
     assert lights.light_table(tables).rows.shape[0] == 0
     key = jax.random.key(DEFAULT_SEED)
     kw = dict(width=W, height=H, spp_chunk=1, spp_total=16, max_depth=8, sampler="sobol", mode="nee")
@@ -146,7 +146,7 @@ class TestFireflyPinned:
     SAMPLES = (544, 576)
 
     def _max_sum(self, nee_clamp):
-        tables = compile_scene(cornell_box())
+        tables = compile_scene(cornell_box(), device="cpu")
         k0, k1, root = key_row(DEFAULT_SEED)
         sample = torch.arange(*self.SAMPLES)
         rays = megakernel.render_rays_reference(

@@ -127,3 +127,71 @@ def test_hemisphere_sample_matches_oracle():
     # The reference binary's own values; tolerance as tests/test_oracle.py.
     for got, col in zip(list(v) + list(w), range(5, 11)):
         np.testing.assert_allclose(got.numpy(), r[:, col], rtol=1e-4, atol=1e-5)
+
+
+# -- The wavefront's draws: jax.random under partitionable Threefry ---------
+
+SEEDS = [0, 9, trng.DEFAULT_SEED, 2**32 - 1]
+
+
+def _key_data(k):
+    return np.asarray(jax.random.key_data(k)).astype(np.int64)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fold_in_split_bits_uniform_bitwise_equal_to_jax(seed):
+    k, tk = jax.random.key(seed), trng.make_key(seed)
+    for data in (0, 1, 77, 0x50B0, 2**32 - 1):
+        np.testing.assert_array_equal(trng.fold_in(tk, data).numpy(),
+                                      _key_data(jax.random.fold_in(k, data)))
+    for num in (2, 5):
+        np.testing.assert_array_equal(trng.split(tk, num).numpy(),
+                                      _key_data(jax.random.split(k, num)))
+    np.testing.assert_array_equal(trng.bits(tk, 7).numpy(),
+                                  np.asarray(jax.random.bits(k, (7,), jnp.uint32)).astype(np.int64))
+    u = trng.uniform(tk, 9)
+    assert u.dtype == torch.float32
+    np.testing.assert_array_equal(u.numpy(), np.asarray(jax.random.uniform(k, (9,))))
+
+
+def test_uniform_mantissa_fill_edges():
+    # jax.random.uniform's float: 23 random mantissa bits under 1.0f, minus 1.
+    words = _t([0, 0x1FF, 0x200, 0xFFFFFFFF])
+    np.testing.assert_array_equal(
+        trng.bits_to_uniform(words).numpy(),
+        np.float32([0.0, 0.0, 2.0**-23, 1.0 - 2.0**-23]),
+    )
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_inverse_renderer_step_keys_equal_jax(seed):
+    # InverseRenderer's step key fold_in(root, step) and the "dual" split.
+    k, tk = jax.random.key(seed), trng.make_key(seed)
+    for step in (0, 1, 2, 249):
+        jstep, tstep = jax.random.fold_in(k, step), trng.fold_in(tk, step)
+        np.testing.assert_array_equal(tstep.numpy(), _key_data(jstep))
+        np.testing.assert_array_equal(trng.split(tstep).numpy(), _key_data(jax.random.split(jstep)))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_ray_streams_and_stream_uniforms_bitwise_equal_to_jax(seed):
+    rng = np.random.default_rng(seed % 1000)
+    pixel = rng.integers(0, 1 << 21, 512).astype(np.uint32)
+    sample = rng.integers(0, 64, 512).astype(np.uint32)
+    js = jrng.make_ray_streams(jax.random.key(seed), jnp.asarray(pixel), jnp.asarray(sample), 64)
+    ts = trng.make_ray_streams(trng.make_key(seed), _t(pixel), _t(sample))
+    np.testing.assert_array_equal(ts.key.numpy(), _key_data(js.key))
+    np.testing.assert_array_equal(ts.pixel_seed.numpy(), np.asarray(js.pixel_seed).astype(np.int64))
+    np.testing.assert_array_equal(ts.sample_idx.numpy(), sample.astype(np.int64))
+    for sampler in ("uniform", "sobol"):
+        for stream, num in ((0, 2), (1, 4), (5, 8), (17, 7)):
+            got = trng.stream_uniforms(ts, stream, num, sampler, index_bits=6)
+            want = jrng.stream_uniforms(js, stream, num, sampler, index_bits=6)
+            assert got.shape == (512, num) and got.dtype == torch.float32
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_stream_uniforms_rejects_unknown_sampler():
+    ts = trng.make_ray_streams(trng.make_key(1), _t([0]), _t([0]))
+    with pytest.raises(ValueError, match="unknown sampler"):
+        trng.stream_uniforms(ts, 0, 2, "halton")

@@ -31,8 +31,8 @@ def test_same_builtin_scenes():
 
 @pytest.mark.parametrize("name", ANALYTIC)
 def test_tables_equal_jax_compile(name):
-    ours = compile_scene(tlib.BUILTIN_SCENES[name]())
-    theirs = from_numpy_scene(jax.device_get(jcompile(jlib.BUILTIN_SCENES[name]())))
+    ours = compile_scene(tlib.BUILTIN_SCENES[name](), device="cpu")
+    theirs = from_numpy_scene(jax.device_get(jcompile(jlib.BUILTIN_SCENES[name]())), device="cpu")
     for field, a, b in zip(ours._fields, ours, theirs):
         assert a.dtype == torch.float32 and a.shape == b.shape, field
         assert torch.equal(a, b), field
@@ -42,7 +42,7 @@ def test_tables_equal_jax_compile(name):
 def test_tables_equal_dynamic_kernel_layout(name):
     # The dynamic-scene Pallas kernel's operand layout: same columns.
     cam, sph, pln, mat = (np.asarray(a) for a in _scene_tables(jcompile(jlib.BUILTIN_SCENES[name]())))
-    ours = compile_scene(tlib.BUILTIN_SCENES[name]())
+    ours = compile_scene(tlib.BUILTIN_SCENES[name](), device="cpu")
     np.testing.assert_array_equal(ours.camera.numpy(), cam.reshape(12))
     np.testing.assert_array_equal(ours.spheres.numpy(), sph)
     np.testing.assert_array_equal(ours.planes.numpy(), pln)
@@ -61,8 +61,8 @@ def test_json_round_trip_between_packages(name):
 def test_json_file_round_trip(tmp_path):
     path = str(tmp_path / "scene.json")
     tlib.cornell_box().save(path)
-    a = compile_scene(SceneDescription.load(path))
-    b = from_numpy_scene(jax.device_get(jcompile(JScene.load(path))))
+    a = compile_scene(SceneDescription.load(path), device="cpu")
+    b = from_numpy_scene(jax.device_get(jcompile(JScene.load(path))), device="cpu")
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
@@ -74,32 +74,32 @@ def test_transformed_scene_equal_jax():
     d.spheres[0].transform = m
     d.planes[0].transform = m
     jd = JScene.from_json(d.to_json())
-    ours = compile_scene(d)
-    theirs = from_numpy_scene(jax.device_get(jcompile(jd)))
+    ours = compile_scene(d, device="cpu")
+    theirs = from_numpy_scene(jax.device_get(jcompile(jd)), device="cpu")
     assert all(torch.equal(x, y) for x, y in zip(ours, theirs))
 
 
 def test_sdf_scenes_raise():
     # SDF scenes compile; one whose SDF names a material that is not in the
     # table raises, as a sphere or a plane with one does.
-    assert compile_scene(tlib.sdf_gallery()).sdfs.shape == (3, 19)
+    assert compile_scene(tlib.sdf_gallery(), device="cpu").sdfs.shape == (3, 19)
     d = SceneDescription()
     d.add_sdf(SDFDescription())
-    assert compile_scene(d).sdfs.shape == (1, 19)
+    assert compile_scene(d, device="cpu").sdfs.shape == (1, 19)
     d.add_sdf(SDFDescription(kind="box", material=4))
     with pytest.raises(ValueError):
-        compile_scene(d)
+        compile_scene(d, device="cpu")
 
 
 def test_material_ids_checked():
     d = SceneDescription()
     d.add_sphere(SphereDescription(material=3))
     with pytest.raises(ValueError):
-        compile_scene(d)
+        compile_scene(d, device="cpu")
 
 
 def test_empty_object_tables():
     d = SceneDescription()
-    t = compile_scene(d)
+    t = compile_scene(d, device="cpu")
     assert t.spheres.shape == (0, 5) and t.planes.shape == (0, 9) and t.sdfs.shape == (0, 19)
     assert t.materials.shape == (1, 11)

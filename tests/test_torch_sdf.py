@@ -61,7 +61,12 @@ from cornelis_tpu_torch.ops import lights, megakernel
 from cornelis_tpu_torch.rng import DEFAULT_SEED, key_row
 from cornelis_tpu_torch.utils.png import read_png
 from cornelis_tpu_torch.scene import library as tlib
-from cornelis_tpu_torch.scene.compile import SDF_COLS, compile_scene, from_numpy_scene
+from cornelis_tpu_torch.scene.compile import (
+    SDF_COLS,
+    compile_scene,
+    from_numpy_scene,
+    scene_arrays,
+)
 from test_torch_nee import agreement
 
 KINDS = {"sphere": 0, "box": 1, "torus": 2}
@@ -200,7 +205,7 @@ def _random_sdf_rays(kind):
 def _gallery_sdf_rays(k):
     """Rays from around sdf_gallery_transformed's camera toward its SDF row k."""
     kind, c, params, _mid, rot, scale = list(
-        megakernel._sdf_rows(compile_scene(tlib.sdf_gallery_transformed())))[k]
+        tg.sdf_objects(scene_arrays(compile_scene(tlib.sdf_gallery_transformed(), device="cpu"))))[k]
     rng = np.random.RandomState(41 + k)
     center = np.asarray([float(v) for v in c], np.float32)
     o = (rng.uniform(-1.0, 1.0, (N, 3)) + [0.0, 1.5, -6.0]).astype(np.float32)
@@ -258,8 +263,8 @@ SCENES = {
 @pytest.mark.parametrize("name", list(SCENES))
 def test_sdf_tables_equal_jax(name):
     jdesc, tdesc = SCENES[name]()
-    ours = compile_scene(tdesc)
-    theirs = from_numpy_scene(jax.device_get(jcompile(jdesc)))
+    ours = compile_scene(tdesc, device="cpu")
+    theirs = from_numpy_scene(jax.device_get(jcompile(jdesc)), device="cpu")
     assert ours.sdfs.shape == (3, SDF_COLS)
     for field, a, b in zip(ours._fields, ours, theirs):
         assert a.dtype == torch.float32 and a.shape == b.shape, field
@@ -283,7 +288,7 @@ def chunks(request):
     """[(port chunk, JAX chunk) per offset], seed 19791102."""
     name, mode, sampler = request.param
     jdesc, tdesc = SCENES[name]()
-    jscene, tables = jcompile(jdesc), compile_scene(tdesc)
+    jscene, tables = jcompile(jdesc), compile_scene(tdesc, device="cpu")
     key = jax.random.key(DEFAULT_SEED)
     before = megakernel.LAUNCHES, megakernel.SDF_LAUNCHES
     out = []
@@ -325,7 +330,7 @@ def test_sdf_session_renders_the_chunks_on_the_cpu(tmp_path):
     result = RenderSession(tlib.sdf_gallery(), opts).render()
     assert result.status == RenderStatus.DONE and result.chunks == 2
     assert (megakernel.LAUNCHES, megakernel.SDF_LAUNCHES) == before
-    tables = compile_scene(tlib.sdf_gallery())
+    tables = compile_scene(tlib.sdf_gallery(), device="cpu")
     kw = dict(width=12, height=12, spp_chunk=2, spp_total=4, max_depth=3, sampler="sobol",
               mode="nee")
     want = sum(megakernel.render_chunk(tables, key_row(opts.seed), off, **kw) for off in (0, 2)) / 4
@@ -348,7 +353,7 @@ def test_light_table_leaves_sdfs_out_and_clamps_over_all_materials():
     d.sdfs[1].material = d.add_material(
         type(d.materials[0])(albedo=(0.0, 0.0, 0.0), emissive=(40.0, 30.0, 20.0)))
     host = host_scene_from_description(JScene.from_json(d.to_json()))
-    got = lights.light_table(compile_scene(d))
+    got = lights.light_table(compile_scene(d, device="cpu"))
     want = _light_table(host)
     assert got.rows.shape[0] == len(want) == 1
     assert got.rows[0, lights.COL_PRIM].item() == want[0][3] == 0

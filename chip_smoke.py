@@ -10,7 +10,7 @@ raises, so the exit code is not 0 and no result line is printed:
   1. card and tools: the device, its power limit, torch, CUDA, nvcc;
   2. build: every library of ops/csrc/ with nvcc, in parallel, timed, and
      the registers and spills of each kernel instantiation (no megakernel
-     instantiation may spill); then the warm-up path (K2):
+     instantiation may spill, those that read a pixel list included); then the warm-up path (K2):
      warm_kernels() loads every library and megakernel instantiation and
      launches the zero fill, whose output must equal torch.zeros, with
      the seconds of the load and of the first launch; and the first and
@@ -68,7 +68,27 @@ raises, so the exit code is not 0 and no result line is printed:
      memory; (e) the albedo recovery of tests/test_diff.py on the card
      (sphere_on_plane 24x24, 250 steps); (f) one profiled demo step: the
      busiest device operations and the share of the gather's backward. Its
-     figures are the {"diff": ...} line before the kernels line.
+     figures are the {"diff": ...} line before the kernels line;
+  7. the mesh (B6: K1 on each rank's shard of a (tiles, samples) mesh):
+     (a) every instantiation through its pixel-id operand (the ids
+     instantiations) on each rank's shard of a 2x2 mesh, against its plain
+     version on the same (pixel, sample) rays, the four shards together at
+     phase 3's size and bar, and rank 3's shard bitwise against the
+     contiguous launch's rows at the main chunk (512x512, 32 spp); that
+     shard's launch timed (its row in the kernels line); then child ranks
+     (this script with --rank, each under a timeout) that share the card
+     over gloo: (b) four ranks through the command line, --mesh 2x2 at the
+     main path's 512x512, 256 spp, max_depth 64 (every rank exits 0, one
+     PNG, rank 0's) and --mesh 4x1, whose PNG must be byte-equal to the
+     single-process command line's; (c) the (2, 2) Cornell session's linear
+     image within rtol 1e-5 / atol 1e-6 of one process's, and sdf-gallery
+     nee/sobol at 512x512, 32 spp on (1, 2), with each rank's launches,
+     kernel ms (CUDA events, one rank at a time) and assembly ms, and the
+     session walls beside one process's; (d) one rank over NCCL on (1, 1),
+     bitwise equal to the render without a mesh (image and PNG); (e) the
+     sharded train step at bench.py's diff shape on (2, 1) and (1, 2), its
+     gradients within 1e-4 relative L2 of one process's. Its figures are
+     the {"mesh": ...} line.
 
 Each kernel's least time (bound_ms) is computed from this run's inputs:
 for the megakernel, the float32 operations of the work the kernel does
@@ -238,11 +258,11 @@ def panel_scene():
 
 def instantiation_name(entry: str) -> str:
     """The report name of a kernel from its mangled entry name."""
-    m = re.search(r"megakernelILb([01])ELb([01])ELb([01])E", entry)
+    m = re.search(r"megakernelILb([01])ELb([01])ELb([01])ELb([01])E", entry)
     if m:
         name = kernel_name("megakernel", ("path", "nee")[int(m.group(1))],
                            ("uniform", "sobol")[int(m.group(2))])
-        return name + (" sdf" if m.group(3) == "1" else "")
+        return name + (" sdf" if m.group(3) == "1" else "") + (" ids" if m.group(4) == "1" else "")
     m = re.search(r"stage_tablesILb([01])E", entry)
     if m:
         return f"{STAGE} {('path', 'nee')[int(m.group(1))]}"
@@ -761,6 +781,433 @@ def diff_phase(device: str, card: str, cpu_scale: int = 1) -> dict:
     return record
 
 
+# Phase 7. B6: K1 on each rank's shard of a (tiles, samples) mesh.
+B6 = "mesh_megakernel path/uniform"
+B6_TPU = "cornelis_tpu/parallel/render.py:156"
+# The main path's mesh, and the shard timed for its row: rank 3 of (2, 2),
+# tile 1 and samples slice 1.
+MAIN_MESH = (2, 2)
+# A samples axis adds the ranks' partial sums in another float order: the
+# bars of tests/test_multiprocess.py:101. The sharded train step's
+# gradients against one process on the card, relative L2.
+MESH_RTOL, MESH_ATOL = 1e-5, 1e-6
+MESH_GRAD_REL = 1e-4
+# Seconds a world of ranks may take, its start included; then every rank
+# is killed and the phase fails.
+RANK_TIMEOUT = 300
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(spec: dict, world: int, tmp: str) -> list:
+    """Run `world` ranks of this script (`chip_smoke.py --rank R SPEC`) on
+    `spec`, each with free coordinator ports of its own, in `tmp`; return
+    each rank's record (the JSON of its last "RANK " line). Fails, with the
+    rank's output, on the first rank that exits non-zero, and kills every
+    rank past RANK_TIMEOUT."""
+    spec = dict(spec, ports=[free_port() for _ in range(3)], world=world, tmp=tmp)
+    path = os.path.join(tmp, f"spec-{spec['kind']}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    # Each rank writes to a file of its own: a full pipe would stall a
+    # rank, and the collectives every other rank with it.
+    logs = [os.path.join(tmp, f"{spec['kind']}{r}.log") for r in range(world)]
+    procs = []
+    for r, log in enumerate(logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", str(r), path], cwd=tmp,
+                stdout=f, stderr=subprocess.STDOUT))
+    records, deadline = [], time.monotonic() + RANK_TIMEOUT
+    try:
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{spec['kind']}: rank {r} still running after "
+                                     f"{RANK_TIMEOUT} s")
+            with open(logs[r]) as f:
+                out = f.read()
+            check(p.returncode == 0, f"{spec['kind']}: rank {r} exited {p.returncode}:\n"
+                  f"{out[-6000:]}")
+            lines = [ln for ln in out.splitlines() if ln.startswith("RANK ")]
+            check(bool(lines), f"{spec['kind']}: rank {r} printed no record:\n{out[-3000:]}")
+            records.append(json.loads(lines[-1][5:]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return records
+
+
+def train_case(device: str, width: int):
+    """bench.py's diff step: Cornell against a zero target, albedo and
+    roughness, Adam lr 5e-2; (scene, target, params, optimizer)."""
+    import torch
+
+    from cornelis_tpu_torch.diff import extract_params
+    from cornelis_tpu_torch.diff.inverse import _leaves
+    from cornelis_tpu_torch.scene.compile import compile_scene, scene_arrays
+    from cornelis_tpu_torch.scene.library import cornell_box
+
+    scene = scene_arrays(compile_scene(cornell_box(), device=device))
+    params = extract_params(scene, ("mat_albedo", "mat_roughness"))
+    target = torch.zeros((width, width, 3), device=device)
+    return scene, target, params, torch.optim.Adam(list(_leaves(params)), lr=5e-2)
+
+
+def train_grads(mesh, device: str, width: int, spp: int, depth: int):
+    """(loss, {name: gradient}) of one sharded step of train_case on `mesh`."""
+    from cornelis_tpu_torch.diff import make_sharded_train_step
+    from cornelis_tpu_torch.rng import make_key
+
+    scene, target, params, optimizer = train_case(device, width)
+    step = make_sharded_train_step(scene, target, mesh, optimizer, width=width, height=width,
+                                   spp=spp, max_depth=depth)
+    loss = float(step(params, make_key(3, device)))
+    grads = {f"{f} {i}": leaf.grad.detach().cpu().numpy().tolist()
+             for f, v in params.items() for i, leaf in enumerate(v if isinstance(v, tuple) else (v,))}
+    return loss, grads
+
+
+def rank_timings(mesh, tables, key, opts) -> dict:
+    """This rank's launch of one 32-spp chunk on its shard (CUDA events,
+    each rank in turn, the others waiting at a barrier, so the card is its
+    own) and one assembly of the frame (host clock around a synchronize,
+    every rank together)."""
+    import torch
+    import torch.distributed as dist
+
+    from cornelis_tpu_torch.ops import megakernel
+    from cornelis_tpu_torch.parallel.render import assemble, shard
+    from cornelis_tpu_torch.utils.timing import event_ms
+
+    k0, k1, root = key
+    spp = 32 - 32 % mesh.n_samples
+    sh = shard(mesh, opts.width, opts.height, spp, 0, opts.tile_size, "cuda")
+    lt = None
+    if opts.integrator == "nee":
+        from cornelis_tpu_torch.ops.lights import light_table
+
+        lt = light_table(tables)
+    kernel_ms = None
+    for r in range(dist.get_world_size()):
+        dist.barrier()
+        if r == dist.get_rank():
+            kernel_ms = event_ms(lambda: megakernel.render_rays(
+                tables, k0, k1, opts.width, opts.height, sh.spp, sh.sample_start, opts.max_depth,
+                root=root, sampler=opts.sampler, mode=opts.integrator, lights=lt,
+                index_bits=megakernel.index_bits_for(opts.samples_aa), pixel_ids=sh.pixel_ids), 5)
+    part = torch.ones((sh.pixel_ids.shape[0], 3), device="cuda")
+    times = []
+    for _ in range(5):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        assemble(mesh, part.clone(), width=opts.width, height=opts.height,
+                 tile_size=opts.tile_size)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return dict(kernel_ms=kernel_ms, shard_rays=int(sh.pixel_ids.shape[0] * sh.spp),
+                collective_ms=statistics.median(times) * 1e3)
+
+
+def timed_session(scene, opts):
+    """(result, wall seconds) of RenderSession(scene, opts).render(), the
+    ranks started together."""
+    import torch
+    import torch.distributed as dist
+
+    from cornelis_tpu_torch import RenderSession
+
+    session = RenderSession(scene, opts)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = session.render()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0
+
+
+def rank_main(rank: int, spec_path: str) -> int:
+    """One rank of phase 7, sharing the card with the others over gloo
+    (NCCL refuses two ranks on one GPU), or alone over NCCL (kind "c").
+    Prints its record as one "RANK {json}" line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from cornelis_tpu_torch import RenderOptions, cornell_box, sdf_gallery
+    from cornelis_tpu_torch.__main__ import main as cli_main
+    from cornelis_tpu_torch.ops import megakernel
+    from cornelis_tpu_torch.parallel import initialize_distributed, make_mesh
+    from cornelis_tpu_torch.rng import key_row
+    from cornelis_tpu_torch.scene.compile import compile_scene
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    world, tmp, kind = spec["world"], spec["tmp"], spec["kind"]
+    coordinator = [f"127.0.0.1:{port}" for port in spec["ports"]]
+    rank_flags = ["--num-processes", str(world), "--process-id", str(rank)]
+    key = key_row(SEED)
+    out = {"rank": rank}
+    os.chdir(os.path.join(tmp, f"{kind}{rank}"))
+
+    def cli(name, argv):
+        megakernel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        check(cli_main(argv) == 0, f"{name}: the command line failed")
+        out[name] = dict(launches=megakernel.LAUNCHES, wall_s=time.perf_counter() - t0)
+
+    if kind == "a":  # 7b and 7c: Cornell on a world of 4
+        gloo = ["--dist-backend", "gloo", *rank_flags]
+        cli("cli 2x2", ["--mesh", "2x2", "-o", "mesh.png", "--coordinator", coordinator[0], *gloo])
+        cli("cli 4x1", ["--mesh", "4x1", "-o", "tiles.png", "--coordinator", coordinator[1],
+                        *gloo])
+        initialize_distributed(coordinator[2], world, rank, backend="gloo")
+        opts = RenderOptions(output=None, mesh_shape=MAIN_MESH)
+        megakernel.LAUNCHES = 0
+        result, wall = timed_session(cornell_box(), opts)
+        out["session"] = dict(wall_s=wall, launches=megakernel.LAUNCHES, chunks=result.chunks)
+        if rank == 0:
+            np.save(os.path.join(tmp, "cornell_2x2.npy"), result.image)
+        mesh = make_mesh(MAIN_MESH)
+        out.update(rank_timings(mesh, compile_scene(cornell_box(), device="cuda"), key, opts))
+    elif kind == "b":  # 7c's SDF scene and 7e on a world of 2
+        initialize_distributed(coordinator[0], world, rank, backend="gloo")
+        opts = RenderOptions(output=None, mesh_shape=(1, 2), samples_aa=32, integrator="nee",
+                             sampler="sobol")
+        megakernel.LAUNCHES = 0
+        result, wall = timed_session(sdf_gallery(), opts)
+        out["session"] = dict(wall_s=wall, launches=megakernel.LAUNCHES, chunks=result.chunks,
+                              sdf_launches=megakernel.SDF_LAUNCHES)
+        if rank == 0:
+            np.save(os.path.join(tmp, "sdf_1x2.npy"), result.image)
+        out.update(rank_timings(make_mesh((1, 2)), compile_scene(sdf_gallery(), device="cuda"),
+                                key, opts))
+        for shape in ((2, 1), (1, 2)):
+            t0 = time.perf_counter()
+            loss, grads = train_grads(make_mesh(shape), "cuda", *DIFF_SHAPES[1][1:])
+            torch.cuda.synchronize()
+            out[f"train {shape}"] = dict(loss=loss, wall_s=time.perf_counter() - t0)
+            if rank == 0:
+                with open(os.path.join(tmp, f"grads_{shape[0]}x{shape[1]}.json"), "w") as f:
+                    json.dump(grads, f)
+    elif kind == "c":  # 7d: one rank over NCCL
+        initialize_distributed(coordinator[0], 1, 0, backend="nccl")
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        result, _wall = timed_session(cornell_box(), RenderOptions(output=None, mesh_shape=(1, 1)))
+        np.save(os.path.join(tmp, "cornell_nccl.npy"), result.image)
+        dist.destroy_process_group()
+        cli("cli 1x1 nccl", ["--mesh", "1x1", "-o", "nccl.png", "--coordinator", coordinator[1],
+                             *rank_flags])
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    print("RANK " + json.dumps(out), flush=True)
+    return 0
+
+
+def mesh_phase(records: dict, key, card: str) -> dict:
+    """Phase 7: (a) K1 through its pixel-id operand against its plain
+    version and against the contiguous launch; (b)-(e) the mesh's entry
+    points in child ranks that share the card. Returns the {"mesh": ...}
+    record."""
+    import numpy as np
+    import torch
+
+    from cornelis_tpu_torch import RenderOptions, RenderSession, cornell_box, sdf_gallery
+    from cornelis_tpu_torch.__main__ import main as cli_main
+    from cornelis_tpu_torch.ops import lights, megakernel
+    from cornelis_tpu_torch.parallel import make_mesh
+    from cornelis_tpu_torch.parallel.mesh import Mesh
+    from cornelis_tpu_torch.parallel.render import shard
+    from cornelis_tpu_torch.scene.compile import compile_scene
+    from cornelis_tpu_torch.utils.png import read_png
+    from cornelis_tpu_torch.utils.timing import event_ms
+
+    k0, k1, root = key
+    mesh_record = {}
+    rank3 = Mesh(MAIN_MESH, 1, 1)
+    scenes = {False: compile_scene(cornell_box(), device="cuda"),
+              True: compile_scene(sdf_gallery(), device="cuda")}
+    rec = records[B6]
+
+    # (a) Every instantiation through the pixel-id operand: each rank's
+    # launch of a (2, 2) mesh, against the plain version on the same
+    # (pixel, sample) rays, the four shards together held to phase 3's bar
+    # on phase 3's chunk (a quarter of its rays alone moves a channel mean
+    # by up to 4x as much for one knife-edge ray); and rank 3's shard
+    # bitwise against the contiguous launch at the main path's chunk.
+    def shard_rays(sh):
+        pixel = sh.pixel_ids.long().repeat_interleave(sh.spp)
+        sample = sh.sample_start + torch.arange(sh.spp, device="cuda").repeat(
+            sh.pixel_ids.shape[0])
+        return pixel, sample
+
+    for sdf, tables in scenes.items():
+        for mode, sampler in VARIANTS:
+            name = kernel_name("megakernel", mode, sampler) + (" sdf" if sdf else "")
+            lt = lights.light_table(tables) if mode == "nee" else None
+            kw = dict(root=root, sampler=sampler, mode=mode, lights=lt)
+            bits = megakernel.index_bits_for(SMOKE["spp"])
+            kern, plain = [], []
+            for t, s in ((t, s) for t in range(MAIN_MESH[0]) for s in range(MAIN_MESH[1])):
+                sh = shard(Mesh(MAIN_MESH, t, s), SMOKE["width"], SMOKE["height"], SMOKE["spp"],
+                           0, 32, "cuda")
+                args = (tables, k0, k1, SMOKE["width"], SMOKE["height"], sh.spp, sh.sample_start,
+                        SMOKE["max_depth"])
+                kern.append(megakernel.render_rays(*args, index_bits=bits,
+                                                   pixel_ids=sh.pixel_ids, **kw))
+                torch.cuda.synchronize()
+                pixel, sample = shard_rays(sh)
+                plain.append(megakernel.render_rays_reference(
+                    *args, "cuda", index_bits=bits, pixel=pixel, sample=sample, **kw))
+                ok = agreement(kern[-1], plain[-1])[0]
+                check(ok >= RAY_FRACTION, f"(a) {name}, shard ({t}, {s}): only {ok:.4%} of rays "
+                      "agree with the plain version")
+            frac, err = hold_to_plain(f"(a) {name}, pixel ids of the four ranks of {MAIN_MESH}, "
+                                      f"{SMOKE['width']}x{SMOKE['height']}", torch.cat(kern),
+                                      torch.cat(plain))
+            if (mode, sampler, sdf) == ("path", "uniform", False):
+                rec["fracs"].append(frac)
+                rec["errs"].append(err)
+            bits = megakernel.index_bits_for(256)
+            full = megakernel.render_rays(tables, k0, k1, 512, 512, 32, 0, 64, index_bits=bits,
+                                          **kw)
+            sh = shard(rank3, 512, 512, 32, 0, 32, "cuda")
+            part = megakernel.render_rays(tables, k0, k1, 512, 512, sh.spp, sh.sample_start, 64,
+                                          index_bits=bits, pixel_ids=sh.pixel_ids, **kw)
+            rows = (sh.pixel_ids.long()[:, None] * 32 + sh.sample_start
+                    + torch.arange(sh.spp, device="cuda")).reshape(-1)
+            same = torch.equal(part, full[rows])
+            print(f"(a) {name}: rank 3's {part.shape[0]} rays of the 512x512 32-spp chunk "
+                  f"{'bitwise equal to' if same else 'DIFFER from'} the contiguous launch's")
+            check(same, f"{name}: a shard's rays differ from the contiguous launch's")
+            del full, part
+
+    # B6's row: rank 3's launch at the main path's chunk, on a card of its own.
+    tables = scenes[False]
+    sh = shard(rank3, 512, 512, 32, 0, 32, "cuda")
+    args = (tables, k0, k1, 512, 512, sh.spp, sh.sample_start, 64)
+    kw = dict(root=root, index_bits=megakernel.index_bits_for(256))
+    n_rays = sh.pixel_ids.shape[0] * sh.spp
+    rec["ms"] = event_ms(lambda: megakernel.render_rays(*args, pixel_ids=sh.pixel_ids, **kw), 10)
+    pixel, sample = shard_rays(sh)
+    plain = lambda: megakernel.render_rays_reference(*args, "cuda", pixel=pixel, sample=sample,
+                                                     **kw)
+    plain_s, _ = timed(plain, reps=1, warmup=False)
+    _, work = counted_work(megakernel, plain)
+    rec["plain_ms"] = plain_s * 1e3
+    rec["bound_ms"] = megakernel_bound_ms(work, n_rays, tables, "path")
+    print(f"{B6}: rank 3 of {MAIN_MESH}, {n_rays} rays: kernel {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.4f} ms on {card}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind, world in (("a", 4), ("b", 2), ("c", 1)):
+            for r in range(world):
+                os.makedirs(os.path.join(tmp, f"{kind}{r}"))
+        # The single-process references, on this process's card.
+        t0 = time.perf_counter()
+        single = RenderSession(cornell_box(), RenderOptions(output=None)).render()
+        single_wall = time.perf_counter() - t0
+        single_png = os.path.join(tmp, "single.png")
+        check(cli_main(["-o", single_png]) == 0, "the single-process command line failed")
+
+        # (b) and (c): four ranks, Cornell 512x512, 256 spp, max_depth 64.
+        ranks = spawn_ranks({"kind": "a"}, 4, tmp)
+        for r in ranks:
+            print(f"(b) rank {r['rank']}: --mesh 2x2 {r['cli 2x2']['launches']} launches in "
+                  f"{r['cli 2x2']['wall_s']:.3f} s, --mesh 4x1 {r['cli 4x1']['launches']} in "
+                  f"{r['cli 4x1']['wall_s']:.3f} s")
+        pngs = sorted(os.path.relpath(os.path.join(d, f), tmp) for d, _, fs in os.walk(tmp)
+                      for f in fs if f.endswith(".png"))
+        check(pngs == ["a0/mesh.png", "a0/tiles.png", "single.png"], f"PNGs written: {pngs}")
+        check(read_png(os.path.join(tmp, "a0", "mesh.png")).shape == (512, 512, 3),
+              "the 2x2 mesh's PNG is not 512x512")
+        with open(single_png, "rb") as f:
+            single_bytes = f.read()
+        with open(os.path.join(tmp, "a0", "tiles.png"), "rb") as f:
+            tiles_same = f.read() == single_bytes
+        print(f"(b) --mesh 4x1 PNG {'byte-equal to' if tiles_same else 'DIFFERS from'} the "
+              "single-process PNG")
+        check(tiles_same, "the tiles-only mesh's PNG differs from the single-process PNG")
+        chunks = single.chunks
+        for r in ranks:
+            check(r["cli 2x2"]["launches"] == r["cli 4x1"]["launches"] == chunks
+                  == r["session"]["launches"] == r["session"]["chunks"],
+                  f"rank {r['rank']}: launches {r} for {chunks} chunks")
+        rec["launches"] = ranks[0]["cli 2x2"]["launches"]
+        multi = np.load(os.path.join(tmp, "cornell_2x2.npy"))
+        close = np.allclose(multi, single.image, rtol=MESH_RTOL, atol=MESH_ATOL)
+        worst = float(np.abs(multi - single.image).max())
+        print(f"(c) Cornell on {MAIN_MESH}: session wall per rank "
+              f"{[round(r['session']['wall_s'], 4) for r in ranks]} s against "
+              f"{single_wall:.4f} s in one process; kernel ms per rank (32-spp chunk on its "
+              f"shard) {[round(r['kernel_ms'], 4) for r in ranks]}; assembly ms "
+              f"{[round(r['collective_ms'], 3) for r in ranks]}; max |diff| from one "
+              f"process {worst:.3g} on {card}")
+        check(close, f"(c) Cornell {MAIN_MESH}: not within rtol {MESH_RTOL} / atol {MESH_ATOL}")
+        mesh_record["cornell_2x2"] = dict(
+            session_wall_s=[r["session"]["wall_s"] for r in ranks], single_wall_s=single_wall,
+            kernel_ms=[r["kernel_ms"] for r in ranks], shard_rays=ranks[0]["shard_rays"],
+            collective_ms=[r["collective_ms"] for r in ranks], max_abs_diff=worst)
+        rec["collective_ms"] = statistics.median(mesh_record["cornell_2x2"]["collective_ms"])
+
+        # (c) sdf-gallery nee/sobol on (1, 2) and (e) the sharded step.
+        sdf_opts = dict(output=None, samples_aa=32, integrator="nee", sampler="sobol")
+        sdf_single = RenderSession(sdf_gallery(), RenderOptions(**sdf_opts)).render().image
+        grads_single = train_grads(make_mesh((1, 1)), "cuda", *DIFF_SHAPES[1][1:])
+        ranks = spawn_ranks({"kind": "b"}, 2, tmp)
+        multi = np.load(os.path.join(tmp, "sdf_1x2.npy"))
+        worst = float(np.abs(multi - sdf_single).max())
+        print(f"(c) sdf-gallery nee/sobol 512x512, 32 spp on (1, 2): session wall "
+              f"{[round(r['session']['wall_s'], 4) for r in ranks]} s, SDF launches "
+              f"{[r['session']['sdf_launches'] for r in ranks]}, kernel ms "
+              f"{[round(r['kernel_ms'], 4) for r in ranks]}, assembly ms "
+              f"{[round(r['collective_ms'], 3) for r in ranks]}, max |diff| {worst:.3g}")
+        check(all(r["session"]["sdf_launches"] == r["session"]["launches"] == 1 for r in ranks),
+              "(c) the SDF mesh did not launch the SDF kernel once a rank")
+        check(np.allclose(multi, sdf_single, rtol=MESH_RTOL, atol=MESH_ATOL),
+              f"(c) sdf-gallery (1, 2): not within rtol {MESH_RTOL} / atol {MESH_ATOL}")
+        mesh_record["sdf_1x2"] = dict(
+            session_wall_s=[r["session"]["wall_s"] for r in ranks],
+            kernel_ms=[r["kernel_ms"] for r in ranks],
+            collective_ms=[r["collective_ms"] for r in ranks], max_abs_diff=worst)
+        loss_single, g_single = grads_single
+        for shape in ((2, 1), (1, 2)):
+            with open(os.path.join(tmp, f"grads_{shape[0]}x{shape[1]}.json")) as f:
+                g_multi = json.load(f)
+            rel = {name: float(np.linalg.norm(np.subtract(g_multi[name], g))
+                               / max(np.linalg.norm(g), 1e-30)) for name, g in g_single.items()}
+            losses = [r[f"train {shape}"]["loss"] for r in ranks]
+            print(f"(e) sharded step on {shape}: losses {losses} against {loss_single:.8g}, "
+                  f"step walls {[round(r[f'train {shape}']['wall_s'], 3) for r in ranks]} s; "
+                  f"gradients' relative L2 from one process {rel}")
+            check(max(rel.values()) <= MESH_GRAD_REL and all(
+                abs(v - loss_single) <= 1e-4 * abs(loss_single) for v in losses),
+                f"(e) {shape}: gradients {rel} or losses {losses} off")
+            mesh_record[f"train_{shape[0]}x{shape[1]}"] = dict(grad_rel=rel, losses=losses)
+
+        # (d) One rank over NCCL: the render and the command line's PNG.
+        spawn_ranks({"kind": "c"}, 1, tmp)
+        nccl = np.load(os.path.join(tmp, "cornell_nccl.npy"))
+        with open(os.path.join(tmp, "c0", "nccl.png"), "rb") as f:
+            nccl_png = f.read() == single_bytes
+        same = np.array_equal(nccl, single.image)
+        print(f"(d) NCCL, a world of one on (1, 1): image {'bitwise equal to' if same else 'DIFFERS from'}"
+              f" the render without a mesh; PNG {'byte-equal' if nccl_png else 'DIFFERS'}")
+        check(same and nccl_png, "(d) the NCCL (1, 1) render differs from the render without a mesh")
+    return mesh_record
+
+
 def main() -> int:
     import torch
 
@@ -812,7 +1259,7 @@ def main() -> int:
     for name, (regs, stack, spill) in sorted(ptxas.items()):
         print(f"  {name}: {regs} registers, {stack} B stack, {spill} B spilled"
               + (f", {sass[name]} SASS instructions" if name in sass else ""))
-    check(len(ptxas) == 17, f"expected 17 kernel instantiations, ptxas reported {sorted(ptxas)}")
+    check(len(ptxas) == 25, f"expected 25 kernel instantiations, ptxas reported {sorted(ptxas)}")
     # Checked at the end, so that a run that fails here still reports the rest.
     spilled = {name: spill for name, (_r, _s, spill) in ptxas.items()
                if name.startswith(("megakernel", STAGE)) and spill != 0}
@@ -843,6 +1290,7 @@ def main() -> int:
     for dtype, name in QUAD.items():
         record(name, CSRC + "probes.cu", K4_TPU, name,
                tol=F32_ULP if dtype == "float32" else BF16_ULP)
+    record(B6, CSRC + "megakernel.cu", B6_TPU, kernel_name("megakernel", "path", "uniform") + " ids")
 
     # K2's main path: the warm-up before anything is timed.
     warm.LAUNCHES = 0
@@ -1291,6 +1739,10 @@ def main() -> int:
     diff_record = diff_phase("cuda", card)
     phase_done()
 
+    phase("7. the mesh: K1 through its pixel-id operand, and ranks that share the card")
+    mesh_record = mesh_phase(records, (k0, k1, root), card)
+    phase_done()
+
     check(not spilled, f"megakernel instantiations spill: {spilled}")
     kernels = []
     for rec in records.values():
@@ -1302,6 +1754,7 @@ def main() -> int:
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"diff": diff_record}))
+    print(json.dumps({"mesh": mesh_record}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1312,4 +1765,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:  # one rank of phase 7, started by spawn_ranks
+        sys.exit(rank_main(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -8,13 +8,23 @@ uniform and Sobol samplers on spheres, planes and SDF primitives, the
 dynamic-scene render (ops/dynamic.py, spheres and planes), the warm-up
 (ops/warm.py) and the TPU-era probes (probes/); and, on the torch-op
 wavefront (integrator.py) under autograd, the differentiable mode
-(diff/: render_diff and InverseRenderer).
+(diff/: render_diff and InverseRenderer); and the render and the
+inverse-render step over a (tiles, samples) mesh of torch.distributed
+ranks (parallel/, diff/sharded.py), each rank's share traced by the
+kernel through its pixel-id operand.
 """
 
 from .camera import Camera, generate_rays, look_at_host
 from .film import Film
 from .math.vec import RGB, Basis, Vec3, construct_basis, cross, dot, mag2, normalize
 from .options import RenderOptions
+from .parallel import (
+    Mesh,
+    initialize_distributed,
+    make_mesh,
+    render_chunk_mesh,
+    render_chunk_mesh_megakernel,
+)
 from .render import RenderResult, RenderSession, RenderStatus
 from .scene.compile import (
     SceneArrays,
@@ -49,6 +59,7 @@ __all__ = [
     "Camera",
     "Film",
     "MaterialDescription",
+    "Mesh",
     "PerspectiveCameraDescription",
     "PlaneDescription",
     "RGB",
@@ -70,9 +81,13 @@ __all__ = [
     "dot",
     "from_numpy_scene",
     "generate_rays",
+    "initialize_distributed",
     "look_at_host",
     "mag2",
+    "make_mesh",
     "normalize",
+    "render_chunk_mesh",
+    "render_chunk_mesh_megakernel",
     "scene_arrays",
     "sdf_gallery",
     "sphere_grid",

@@ -1,6 +1,6 @@
 """Differentiable rendering and inverse-render optimisation on the torch
-wavefront: counterpart of `cornelis_tpu/diff/` without its sharded train
-step (diff/sharded.py), which comes with the device mesh.
+wavefront: counterpart of `cornelis_tpu/diff/`, with its sharded train
+step over a mesh of ranks (sharded.py).
 
 render_diff differentiates the detached-sampling estimator: material
 gradients (albedo, roughness, emission, tint) are well behaved and checked
@@ -19,6 +19,7 @@ from .inverse import (
     params_to_numpy,
 )
 from .render import render_diff
+from .sharded import make_sharded_train_step
 
 __all__ = [
     "OPTIMIZABLE_FIELDS",
@@ -26,6 +27,7 @@ __all__ = [
     "apply_params",
     "extract_params",
     "make_loss",
+    "make_sharded_train_step",
     "params_from_numpy",
     "params_to_numpy",
     "render_diff",

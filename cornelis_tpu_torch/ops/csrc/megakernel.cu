@@ -36,9 +36,21 @@
 // Draws depend only on (pixel, sample, stream, pair), so the order in which
 // rays are traced changes no ray's radiance.
 //
+// Ray k of a launch is (pixel k / spp_chunk, sample sample_offset + k %
+// spp_chunk), where the pixel is the frame's index of the pixel, or, given
+// a list of pixel ids, the (k / spp_chunk)-th id of the list. The list is
+// the port of the mesh render's `px` operand
+// (cornelis_tpu/parallel/render.py::_build_mesh_pallas_renderer): each rank
+// of a (tiles, samples) mesh traces its tile-major run of pixels and its
+// slice of the chunk's samples. Everything after the read (jitter, keys,
+// Sobol seed) uses the frame's pixel, so a ray gives the same bits on any
+// rank. A launch with a list runs instantiations of its own (IDS), so the
+// contiguous ones are unchanged: read behind a runtime test in them, the
+// id made path/uniform with SDFs spill 24 B at its 64 registers.
+//
 // What bounds it on this card: FP32 issue and warp divergence, not bytes. A
-// ray reads no input (its pixel and sample come from its index), writes 12
-// B of radiance, and spends thousands of FP32 and special-function
+// ray reads no input but, on a mesh rank, its 4-byte pixel id once at the
+// start of its path, writes 12 B of radiance, and spends thousands of FP32 and special-function
 // instructions per bounce. Three things kept lanes idle or busy for
 // nothing, and the design takes each on:
 //
@@ -151,10 +163,11 @@ constexpr int PLANE_ROW = 16, SDF_ROW = 20;  // floats of a plane and an SDF row
 // Blocks per SM that each instantiation's __launch_bounds__ asks for: the
 // most at which ptxas spills nothing (65536 registers / 128 threads /
 // blocks: 8 -> 64 registers, 7 -> 72, 5 -> 96), from its measured
-// registers (PERF.md).
-template <bool NEE, bool SOBOL, bool SDF>
+// registers (PERF.md). IDS: the launch reads its pixels from a list; at 8
+// blocks path/uniform with SDFs then spills 8 B, at 7 (72 registers) none.
+template <bool NEE, bool SOBOL, bool SDF, bool IDS>
 struct MinBlocks {
-  static constexpr int value = NEE ? 5 : (SOBOL && !SDF ? 7 : 8);
+  static constexpr int value = NEE ? 5 : (SOBOL && !SDF ? 7 : (IDS && SDF && !SOBOL ? 7 : 8));
 };
 
 struct V3 {
@@ -225,6 +238,7 @@ struct Launch {
   const float* tables;   // the expanded layout in device memory, or null: in shared memory
   const float* camera;
   const float* clamp;  // mode "nee": the clamp base
+  const uint32_t* pixel_ids;  // ray k's pixel is pixel_ids[k / spp_chunk]; null: k / spp_chunk
   float* out;
   unsigned* counter;  // rays claimed so far; zeroed by the launch
   unsigned n_rays;
@@ -1016,18 +1030,20 @@ __device__ __forceinline__ LightSample sample_light(const Launch& L, V3 p, float
 
 // One path in flight in a lane.
 struct Path {
-  unsigned k;  // ray index: (pixel k / spp, sample offset + k % spp)
+  unsigned k;  // ray index: (pixel (id) k / spp, sample offset + k % spp)
   Draws s;
   V3 o, d, tput, rad;
   float prev_pdf;  // the previous vertex's true BSDF density (MIS)
   int depth;
 };
 
-// Camera jitter (stream 0, pair 0) and generate_rays for ray k.
-template <bool SOBOL>
+// Camera jitter (stream 0, pair 0) and generate_rays for ray k; with IDS,
+// its pixel is the (k / spp_chunk)-th of the launch's list.
+template <bool SOBOL, bool IDS>
 __device__ __forceinline__ void start_path(const Launch& L, unsigned k, Path& P) {
   P.k = k;
   P.s.pixel = k / L.spp_chunk;
+  if (IDS) P.s.pixel = __ldg(L.pixel_ids + P.s.pixel);
   P.s.sample = L.sample_offset + k % L.spp_chunk;
   P.s.seed = hash32(P.s.pixel ^ L.root);  // the per-pixel Sobol seed
   float u0, u1;
@@ -1127,8 +1143,8 @@ __device__ __forceinline__ bool bounce(const Launch& L, Path& P, float clamp_bas
 // Persistent: each block stages the tables, then its lanes take rays from
 // the block's range until the launch's rays are all taken. A lane whose
 // path ends writes its radiance and takes a new ray at the next iteration.
-template <bool NEE, bool SOBOL, bool SDF>
-__global__ void __launch_bounds__(BLOCK, MinBlocks<NEE, SOBOL, SDF>::value) megakernel(const __grid_constant__ Launch L) {
+template <bool NEE, bool SOBOL, bool SDF, bool IDS>
+__global__ void __launch_bounds__(BLOCK, MinBlocks<NEE, SOBOL, SDF, IDS>::value) megakernel(const __grid_constant__ Launch L) {
   if (L.tables == nullptr) expand<NEE>(cornelis_smem, L, threadIdx.x, BLOCK);
   if (threadIdx.x == 0) {
     unsigned kept;
@@ -1154,7 +1170,7 @@ __global__ void __launch_bounds__(BLOCK, MinBlocks<NEE, SOBOL, SDF>::value) mega
       if (!alive && !finished) {
         const unsigned rank = __popc(idle & ((1u << lane) - 1u));
         if (rank < got.y + got.w) {
-          start_path<SOBOL>(L, rank < got.y ? got.x + rank : got.z + (rank - got.y), P);
+          start_path<SOBOL, IDS>(L, rank < got.y ? got.x + rank : got.z + (rank - got.y), P);
           alive = L.max_depth > 0;
           if (!alive) finish_path(L, P);
         } else if (*(volatile int*)&block_done) {
@@ -1191,9 +1207,9 @@ int layout(Launch& L) {
 // (SMs x the blocks an SM holds, or fewer for a small launch) on `stream`,
 // with the tables in each block's shared memory, or, past SMEM_CAP, staged
 // once in device memory allocated and freed on `stream`.
-template <bool NEE, bool SOBOL, bool SDF>
+template <bool NEE, bool SOBOL, bool SDF, bool IDS>
 int launch(Launch L, cudaStream_t stream) {
-  const auto kernel = megakernel<NEE, SOBOL, SDF>;  // for the attribute and occupancy calls
+  const auto kernel = megakernel<NEE, SOBOL, SDF, IDS>;  // for the attribute and occupancy calls
   const int bytes = layout(L);
   const int smem = bytes <= SMEM_CAP ? bytes : 0;
   cudaError_t err = cudaSuccess;
@@ -1221,7 +1237,7 @@ int launch(Launch L, cudaStream_t stream) {
   if (err == cudaSuccess) {
     const unsigned wave = (unsigned)(sms * per_sm);
     const unsigned needed = (L.n_rays + CHUNK - 1) / CHUNK;
-    megakernel<NEE, SOBOL, SDF><<<needed < wave ? needed : wave, BLOCK, smem, stream>>>(L);
+    megakernel<NEE, SOBOL, SDF, IDS><<<needed < wave ? needed : wave, BLOCK, smem, stream>>>(L);
     err = cudaGetLastError();
   }
   if (staged != nullptr) {
@@ -1231,20 +1247,32 @@ int launch(Launch L, cudaStream_t stream) {
   return (int)err;
 }
 
-// The instantiation for (sobol, SDF rows present).
+// The instantiation for (sobol, SDF rows present, a pixel list given).
+template <bool NEE, bool IDS>
+int pick_sampler(Launch L, int sobol, cudaStream_t stream) {
+  if (L.sdfs.n > 0)
+    return sobol ? launch<NEE, true, true, IDS>(L, stream) : launch<NEE, false, true, IDS>(L, stream);
+  return sobol ? launch<NEE, true, false, IDS>(L, stream) : launch<NEE, false, false, IDS>(L, stream);
+}
+
 template <bool NEE>
 int pick(Launch L, int sobol, cudaStream_t stream) {
-  if (L.sdfs.n > 0) return sobol ? launch<NEE, true, true>(L, stream) : launch<NEE, false, true>(L, stream);
-  return sobol ? launch<NEE, true, false>(L, stream) : launch<NEE, false, false>(L, stream);
+  return L.pixel_ids != nullptr ? pick_sampler<NEE, true>(L, sobol, stream)
+                                : pick_sampler<NEE, false>(L, sobol, stream);
 }
 
 // Every kernel of this library, for cornelis_megakernel*_load.
 template <bool NEE>
 int load_all() {
-  const void* fns[5] = {(const void*)megakernel<NEE, false, false>,
-                        (const void*)megakernel<NEE, true, false>,
-                        (const void*)megakernel<NEE, false, true>,
-                        (const void*)megakernel<NEE, true, true>, (const void*)stage_tables<NEE>};
+  const void* fns[9] = {(const void*)megakernel<NEE, false, false, false>,
+                        (const void*)megakernel<NEE, true, false, false>,
+                        (const void*)megakernel<NEE, false, true, false>,
+                        (const void*)megakernel<NEE, true, true, false>,
+                        (const void*)megakernel<NEE, false, false, true>,
+                        (const void*)megakernel<NEE, true, false, true>,
+                        (const void*)megakernel<NEE, false, true, true>,
+                        (const void*)megakernel<NEE, true, true, true>,
+                        (const void*)stage_tables<NEE>};
   for (const void* fn : fns) {
     cudaFuncAttributes attr;
     const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
@@ -1254,14 +1282,17 @@ int load_all() {
 }
 
 // The launch's arguments, checked: n_rays in [0, 2^31) (ray indices are 32
-// bits wide), index_bits clamped to [1, 32]. Returns 0 or a CUDA error.
+// bits wide), index_bits clamped to [1, 32]; pixel_ids null or holding
+// n_rays / spp_chunk ids. Returns 0 or a CUDA error.
 int make_launch(Launch& L, const float* camera, const float* spheres, int n_spheres,
                 const float* planes, int n_planes, const float* materials, int n_materials,
                 const float* sdfs, int n_sdfs, float* out, unsigned* counter, long long n_rays,
                 uint32_t k0, uint32_t k1, uint32_t root, int width, float inv_width,
-                float inv_height, int spp_chunk, uint32_t sample_offset, int max_depth,
-                int index_bits, const float* lights, int n_lights, const float* clamp) {
-  if (n_rays < 0 || n_rays >= (1ll << 31) || spp_chunk < 1 || width < 1)
+                float inv_height, int spp_chunk, uint32_t sample_offset,
+                const uint32_t* pixel_ids, int max_depth, int index_bits,
+                const float* lights, int n_lights, const float* clamp) {
+  if (n_rays < 0 || n_rays >= (1ll << 31) || spp_chunk < 1 || width < 1 ||
+      (pixel_ids != nullptr && n_rays % spp_chunk != 0))
     return (int)cudaErrorInvalidValue;
   L.spheres = Table{spheres, n_spheres, 0};
   L.planes = Table{planes, n_planes, 0};
@@ -1271,6 +1302,7 @@ int make_launch(Launch& L, const float* camera, const float* spheres, int n_sphe
   L.tables = nullptr;
   L.camera = camera;
   L.clamp = clamp;
+  L.pixel_ids = pixel_ids;
   L.out = out;
   L.counter = counter;
   L.n_rays = (unsigned)n_rays;
@@ -1295,19 +1327,22 @@ int make_launch(Launch& L, const float* camera, const float* spheres, int n_sphe
 // the first CUDA error (0: launched). sobol (0 or 1) and n_sdfs > 0 choose
 // the instantiation; `counter` is one unsigned of device scratch that the
 // launch zeroes on `stream` before the kernel runs, so a launch must not
-// share it with another in flight. Writes out[3k..3k+2] for every ray k.
+// share it with another in flight. pixel_ids, when not null, lists the
+// n_rays / spp_chunk pixels the launch traces (a mesh rank's shard).
+// Writes out[3k..3k+2] for every ray k.
 extern "C" int cornelis_megakernel(const float* camera, const float* spheres, int n_spheres,
                                    const float* planes, int n_planes, const float* materials,
                                    int n_materials, const float* sdfs, int n_sdfs, float* out,
                                    unsigned* counter, long long n_rays, uint32_t k0, uint32_t k1,
                                    uint32_t root, int width, float inv_width, float inv_height,
-                                   int spp_chunk, uint32_t sample_offset, int max_depth, int sobol,
+                                   int spp_chunk, uint32_t sample_offset,
+                                   const uint32_t* pixel_ids, int max_depth, int sobol,
                                    int index_bits, void* stream) {
   Launch L;
   const int err = make_launch(L, camera, spheres, n_spheres, planes, n_planes, materials,
                               n_materials, sdfs, n_sdfs, out, counter, n_rays, k0, k1, root, width,
-                              inv_width, inv_height, spp_chunk, sample_offset, max_depth,
-                              index_bits, nullptr, 0, nullptr);
+                              inv_width, inv_height, spp_chunk, sample_offset, pixel_ids,
+                              max_depth, index_bits, nullptr, 0, nullptr);
   if (err != 0 || n_rays == 0) return err;
   return pick<false>(L, sobol, (cudaStream_t)stream);
 }
@@ -1326,14 +1361,14 @@ extern "C" int cornelis_megakernel_nee(const float* camera, const float* spheres
                                        unsigned* counter, long long n_rays, uint32_t k0,
                                        uint32_t k1, uint32_t root, int width, float inv_width,
                                        float inv_height, int spp_chunk, uint32_t sample_offset,
-                                       int max_depth, int sobol, int index_bits,
-                                       const float* lights, int n_lights, const float* clamp,
-                                       void* stream) {
+                                       const uint32_t* pixel_ids, int max_depth, int sobol,
+                                       int index_bits, const float* lights, int n_lights,
+                                       const float* clamp, void* stream) {
   Launch L;
   const int err = make_launch(L, camera, spheres, n_spheres, planes, n_planes, materials,
                               n_materials, sdfs, n_sdfs, out, counter, n_rays, k0, k1, root, width,
-                              inv_width, inv_height, spp_chunk, sample_offset, max_depth,
-                              index_bits, lights, n_lights, clamp);
+                              inv_width, inv_height, spp_chunk, sample_offset, pixel_ids,
+                              max_depth, index_bits, lights, n_lights, clamp);
   if (err != 0 || n_rays == 0) return err;
   return pick<true>(L, sobol, (cudaStream_t)stream);
 }

@@ -11,9 +11,12 @@ torch wavefront of the same bounce, written step by step after
 against the JAX kernel and what chip_smoke.py holds the CUDA kernel
 against on the card.
 
-Ray k of a chunk is (pixel k // spp_chunk, sample offset + k % spp_chunk).
-Both versions write one RGB radiance per ray into an (n_rays, 3) float32
-tensor; `render_chunk` sums each pixel's samples outside the kernel.
+Ray k of a chunk is (pixel k // spp_chunk, sample offset + k % spp_chunk),
+or, given `pixel_ids` (a mesh rank's shard, parallel/render.py), (pixel
+pixel_ids[k // spp_chunk], sample offset + k % spp_chunk): the port of the
+mesh megakernel's `px` and `si` operands. Both versions write one RGB
+radiance per ray into an (n_rays, 3) float32 tensor; `render_chunk` sums
+each pixel's samples outside the kernel.
 Mode "nee" reads a light table (ops/lights.py): K1's, built on the host,
 here; the dynamic-scene kernel's, built on the device, in ops/dynamic.py.
 """
@@ -307,7 +310,7 @@ def _kernel_fn(nee: bool):
         p, p, ctypes.c_longlong,  # out, counter, n_rays
         u, u, u,  # k0, k1, root
         i, ctypes.c_float, ctypes.c_float,  # width, inv_width, inv_height
-        i, u, i,  # spp_chunk, sample_offset, max_depth
+        i, u, p, i,  # spp_chunk, sample_offset, pixel_ids, max_depth
         i, i,  # sobol, index_bits
         *((p, i, p) if nee else ()),  # lights, n_lights, clamp
         p,  # stream
@@ -347,12 +350,19 @@ def _check_lights(lights: L.Lights, device) -> None:
         raise ValueError(f"light table shapes {tuple(rows.shape)}, {tuple(clamp.shape)}")
 
 
+def _check_pixel_ids(pixel_ids: torch.Tensor, device) -> None:
+    if (pixel_ids.dtype != torch.int32 or pixel_ids.ndim != 1 or not pixel_ids.is_contiguous()
+            or pixel_ids.device != device):
+        raise ValueError(f"pixel_ids must be a contiguous 1-D int32 tensor on {device}")
+
+
 def _launch_into(out, tables, k0, k1, width, height, spp_chunk, offset, max_depth, *, root,
-                sampler, mode, index_bits, lights) -> None:
+                sampler, mode, index_bits, lights, pixel_ids=None) -> None:
     """Launch the kernel on checked CUDA tables, writing ray k's radiance to
-    out[k] ((n_rays, 3) float32 on the tables' device). The kernel's blocks
-    take rays in no fixed order, through a ray counter that this launch
-    allocates and the C entry zeroes on the launch's stream."""
+    out[k] ((n_rays, 3) float32 on the tables' device); with checked
+    `pixel_ids`, ray k is pixel pixel_ids[k // spp_chunk]'s. The kernel's
+    blocks take rays in no fixed order, through a ray counter that this
+    launch allocates and the C entry zeroes on the launch's stream."""
     nee = mode == "nee"
     counter = torch.empty((1,), dtype=torch.int32, device=out.device)
     light_args = (
@@ -381,6 +391,7 @@ def _launch_into(out, tables, k0, k1, width, height, spp_chunk, offset, max_dept
         1.0 / height,
         spp_chunk,
         offset,
+        None if pixel_ids is None else pixel_ids.data_ptr(),
         max_depth,
         int(sampler == "sobol"),
         index_bits,
@@ -403,27 +414,39 @@ def render_rays(
     mode: str = "path",
     index_bits: int = 32,
     lights: Optional[L.Lights] = None,
+    pixel_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(n_rays, 3) radiance on the tables' device: the CUDA kernel on a CUDA
     device, the plain version on the CPU. A failed launch raises. Tables
     with SDF rows launch the SDF instantiation (`SDF_LAUNCHES` counts
-    those launches too)."""
+    those launches too). With `pixel_ids` (contiguous int32 frame pixel
+    indices on the tables' device) the launch traces those pixels' rays,
+    len(pixel_ids) x spp_chunk of them, pixel-major."""
     global LAUNCHES, SDF_LAUNCHES
     check_tables(tables)
     _check_variant(sampler, mode, lights)
     device = tables.camera.device
     if mode == "nee":
         _check_lights(lights, device)
+    if pixel_ids is not None:
+        _check_pixel_ids(pixel_ids, device)
+    n_pixels = width * height if pixel_ids is None else pixel_ids.shape[0]
     if device.type == "cpu":
+        pixel = sample = None
+        if pixel_ids is not None:
+            pixel = pixel_ids.repeat_interleave(spp_chunk)
+            sample = offset + torch.arange(spp_chunk, dtype=torch.int64).repeat(n_pixels)
         return render_rays_reference(
             tables, k0, k1, width, height, spp_chunk, offset, max_depth, device,
             root=root, sampler=sampler, mode=mode, index_bits=index_bits, lights=lights,
+            pixel=pixel, sample=sample,
         )
     if device.type != "cuda":
         raise ValueError(f"no megakernel for device {device}")
-    out = torch.empty((width * height * spp_chunk, 3), dtype=torch.float32, device=device)
+    out = torch.empty((n_pixels * spp_chunk, 3), dtype=torch.float32, device=device)
     _launch_into(out, tables, k0, k1, width, height, spp_chunk, offset, max_depth, root=root,
-                sampler=sampler, mode=mode, index_bits=index_bits, lights=lights)
+                sampler=sampler, mode=mode, index_bits=index_bits, lights=lights,
+                pixel_ids=pixel_ids)
     LAUNCHES += 1
     SDF_LAUNCHES += int(tables.sdfs.shape[0] > 0)
     return out

@@ -5,8 +5,7 @@ with the reference's defaults (RenderOptions.hpp:6-16, Render.cpp:264,307):
 512x512, 256 spp, max_depth 64, the reference seed, the path integrator
 and the uniform sampler. New here: `device`. The tables' device decides
 what runs: a CUDA device launches the hand-written kernel, the CPU runs
-its plain version. Checkpoint, time budget and the device mesh come in
-later work.
+its plain version. Checkpoint and time budget come in later work.
 """
 
 from __future__ import annotations
@@ -44,6 +43,15 @@ class RenderOptions:
     # Where the render runs: "cuda" (the kernel) or "cpu" (its plain
     # version). There is no automatic choice of the CPU.
     device: str = "cuda"
+    # Mesh shape (tiles, samples) over the ranks of the process group
+    # (parallel.initialize_distributed); None = one process. The
+    # replacement for the reference's TBB tile pool (Render.cpp:335-354):
+    # pixels shard over tiles, spp over samples.
+    mesh_shape: Optional[tuple] = None
+    # Image-tile edge for the mesh's pixel sharding (FrameTiling as a
+    # sharding spec; the reference's 32x32 parallel grain, Render.cpp:327).
+    # 0 = flat row-band split. Ignored without mesh_shape.
+    tile_size: int = 32
 
     def validate(self) -> None:
         if self.samples_aa <= 0:
@@ -54,6 +62,8 @@ class RenderOptions:
             raise ValueError("max_depth must be positive.")
         if self.spp_chunk < 0:
             raise ValueError("spp_chunk must be >= 0 (0 = auto).")
+        if self.tile_size < 0:
+            raise ValueError("tile_size must be >= 0 (0 = flat split).")
         if self.sampler not in ("uniform", "sobol"):
             raise ValueError(f"sampler must be 'uniform' or 'sobol' (not {self.sampler!r}).")
         if self.integrator not in ("path", "nee"):

@@ -27,6 +27,11 @@ max_depth 4, pixels and gradients held as tests/test_torch_diff.py holds
 the CPU against JAX (99% of pixels within 1e-4, 90% in mode nee; every
 float field within 2% relative L2 over the pixels that agree, the light's
 albedo and tint rows left out); and one InverseRenderer step on the card.
+
+The mesh's pixel-id operand (a shard of a (2, 2) mesh): every
+instantiation gives the contiguous launch's rays bit for bit, and meets
+the bar above against the plain version on the same (pixel, sample)
+rays; a (1, 1) mesh session renders as the single session, bitwise.
 """
 
 import numpy as np
@@ -227,6 +232,68 @@ def test_cuda_sphere_grid_beyond_the_shared_memory_cap(cuda, n, mode, sampler):
     frac, mean_rel = agreement(k.cpu().numpy(), p.cpu().numpy())
     assert torch.isfinite(k).all() and k.sum() > 0
     assert frac >= 0.99 and (mean_rel <= 1e-2).all()
+
+
+def _shard_case(scene, mode, sampler, width, spp):
+    """The kernel's arguments, and rank 3's shard (tile 1, samples slice 1)
+    of a (2, 2) mesh over a width x width frame with `spp` samples."""
+    from cornelis_tpu_torch.parallel.mesh import Mesh
+    from cornelis_tpu_torch.parallel.render import shard
+
+    tables, k0, k1, kw = _variant(scene, mode, sampler)
+    sh = shard(Mesh((2, 2), 1, 1), width, width, spp, 0, 32, "cuda")
+    return tables, k0, k1, kw, sh
+
+
+@pytest.mark.parametrize("scene", ["cornell_box", "sdf_gallery"])
+@pytest.mark.parametrize("mode,sampler", VARIANTS)
+def test_cuda_pixel_ids_give_the_contiguous_launchs_rays_bitwise(cuda, scene, mode, sampler):
+    # Everything after the id read uses the frame's pixel, so a shard's
+    # rays are the contiguous launch's rows bit for bit.
+    tables, k0, k1, kw, sh = _shard_case(scene, mode, sampler, 64, 8)
+    full = megakernel.render_rays(tables, k0, k1, 64, 64, 8, 0, 64, **kw)
+    before = megakernel.LAUNCHES
+    rays = megakernel.render_rays(tables, k0, k1, 64, 64, sh.spp, sh.sample_start, 64,
+                                  pixel_ids=sh.pixel_ids, **kw)
+    torch.cuda.synchronize()
+    assert megakernel.LAUNCHES == before + 1
+    rows = sh.pixel_ids.long()[:, None] * 8 + sh.sample_start + torch.arange(sh.spp, device="cuda")
+    assert rays.shape == (64 * 64 // 2 * 4, 3)
+    assert torch.equal(rays, full[rows.reshape(-1)])
+
+
+@pytest.mark.parametrize("scene", ["cornell_box", "sdf_gallery"])
+@pytest.mark.parametrize("mode,sampler", VARIANTS)
+def test_cuda_pixel_ids_match_the_plain_version(cuda, scene, mode, sampler):
+    tables, k0, k1, kw, sh = _shard_case(scene, mode, sampler, 32, 8)
+    args = (tables, k0, k1, 32, 32, sh.spp, sh.sample_start, 64)
+    k = megakernel.render_rays(*args, pixel_ids=sh.pixel_ids, **kw)
+    torch.cuda.synchronize()
+    pixel = sh.pixel_ids.long().repeat_interleave(sh.spp)
+    sample = sh.sample_start + torch.arange(sh.spp, device="cuda").repeat(sh.pixel_ids.shape[0])
+    p = megakernel.render_rays_reference(*args, "cuda", pixel=pixel, sample=sample, **kw)
+    frac, mean_rel = agreement(k.cpu().numpy(), p.cpu().numpy())
+    assert torch.isfinite(k).all()
+    assert frac >= 0.99 and (mean_rel <= 1e-2).all()
+
+
+def test_cuda_pixel_ids_are_checked(cuda):
+    tables, k0, k1, kw = _variant("cornell_box", "path", "uniform")
+    for ids in (torch.arange(4, dtype=torch.int64, device="cuda"),
+                torch.arange(4, dtype=torch.int32),
+                torch.arange(8, dtype=torch.int32, device="cuda")[::2]):
+        with pytest.raises(ValueError, match="pixel_ids"):
+            megakernel.render_rays(tables, k0, k1, 8, 8, 1, 0, 4, pixel_ids=ids, **kw)
+
+
+def test_cuda_one_by_one_mesh_session_is_the_single_session(cuda):
+    opts = dict(width=64, height=64, samples_aa=16, spp_chunk=8, max_depth=16, output=None,
+                device="cuda", integrator="nee", sampler="sobol")
+    single = RenderSession(tlib.cornell_box(), RenderOptions(**opts)).render()
+    before = megakernel.LAUNCHES
+    meshed = RenderSession(tlib.cornell_box(), RenderOptions(**opts, mesh_shape=(1, 1))).render()
+    assert megakernel.LAUNCHES == before + 2 == before + meshed.chunks
+    np.testing.assert_array_equal(meshed.image, single.image)
 
 
 def test_cuda_sdf_session_launches_the_sdf_kernel(cuda):

@@ -64,6 +64,11 @@ def test_jax_is_really_blocked(tmp_path):
         "cornelis_tpu_torch.integrator",
         "cornelis_tpu_torch.diff",
         "cornelis_tpu_torch.diff.inverse",
+        "cornelis_tpu_torch.diff.sharded",
+        "cornelis_tpu_torch.math.tiles",
+        "cornelis_tpu_torch.parallel",
+        "cornelis_tpu_torch.parallel.mesh",
+        "cornelis_tpu_torch.parallel.render",
     ],
 )
 def test_import_without_jax(module, tmp_path):

@@ -87,8 +87,24 @@ raises, so the exit code is not 0 and no result line is printed:
      session walls beside one process's; (d) one rank over NCCL on (1, 1),
      bitwise equal to the render without a mesh (image and PNG); (e) the
      sharded train step at bench.py's diff shape on (2, 1) and (1, 2), its
-     gradients within 1e-4 relative L2 of one process's. Its figures are
-     the {"mesh": ...} line.
+     gradients within 1e-4 relative L2 of one process's; (f) two ranks on
+     (2, 1) with a time budget, a checkpoint and a progress callback on
+     rank 0 alone: both stop at rank 0's chunk, only rank 0's checkpoint
+     exists. Its figures are the {"mesh": ...} line;
+  8. the session at the main path's width (Cornell 512x512, 256 spp,
+     max_depth 64, path/uniform), every branch launching K1: (a) a progress
+     callback (completed <= dispatched, monotone, ending on the 8 chunks)
+     and its wall against the plain session's, in turns; (b) an abort at
+     the first callback (32 spp); (c) an abort after chunk 3 with a
+     checkpoint (the JAX package's npz keys) and its resume, against the
+     straight session; (d) a 0.05 s budget over 4096 spp against a
+     straight render at the count it reached; (e) the command line with
+     --checkpoint, --time-budget, --standard-srgb, --profile-dir and -q;
+     (f) the native host library loaded, and the session's PNG byte-equal
+     to the Python and the native encoders' on its uint8 image; (g) the PNG wall's split on the card's host
+     (copy, accumulate, tonemap, encode; torch or numpy against native,
+     median of 5); (h) tests/test_golden_image.py's 128x128 live golden on
+     the port's wavefront. Its figures are the {"session": ...} line.
 
 Each kernel's least time (bound_ms) is computed from this run's inputs:
 for the megakernel, the float32 operations of the work the kernel does
@@ -795,6 +811,9 @@ MESH_GRAD_REL = 1e-4
 # Seconds a world of ranks may take, its start included; then every rank
 # is killed and the phase fails.
 RANK_TIMEOUT = 300
+# Phase 7f's time budget: a few of the eight chunks of two ranks that
+# share the card and stage their collectives through the host.
+AGREE_BUDGET_S = 0.05
 
 
 def free_port() -> int:
@@ -1001,6 +1020,25 @@ def rank_main(rank: int, spec_path: str) -> int:
             if rank == 0:
                 with open(os.path.join(tmp, f"grads_{shape[0]}x{shape[1]}.json"), "w") as f:
                     json.dump(grads, f)
+    elif kind == "d":  # 7f: the session's rank-agreed branches on a world of 2
+        from cornelis_tpu_torch import RenderCommand, RenderSession
+
+        initialize_distributed(coordinator[0], world, rank, backend="gloo")
+        calls = []
+
+        def on_progress(progress, status):
+            calls.append(status.name)
+            return RenderCommand.CONTINUE
+
+        opts = RenderOptions(output=None, mesh_shape=(2, 1), time_budget_s=AGREE_BUDGET_S,
+                             checkpoint=os.path.join(tmp, f"ck{rank}.npz"))
+        session = RenderSession(cornell_box(), opts)
+        megakernel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        result = session.render(on_progress if rank == 0 else None)
+        out["agree"] = dict(status=result.status.name, samples=result.film.sample_count,
+                            chunks=result.chunks, launches=megakernel.LAUNCHES, calls=calls,
+                            wall_s=time.perf_counter() - t0)
     elif kind == "c":  # 7d: one rank over NCCL
         initialize_distributed(coordinator[0], 1, 0, backend="nccl")
         check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
@@ -1111,7 +1149,7 @@ def mesh_phase(records: dict, key, card: str) -> dict:
           f"{rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.4f} ms on {card}")
 
     with tempfile.TemporaryDirectory() as tmp:
-        for kind, world in (("a", 4), ("b", 2), ("c", 1)):
+        for kind, world in (("a", 4), ("b", 2), ("c", 1), ("d", 2)):
             for r in range(world):
                 os.makedirs(os.path.join(tmp, f"{kind}{r}"))
         # The single-process references, on this process's card.
@@ -1205,7 +1243,423 @@ def mesh_phase(records: dict, key, card: str) -> dict:
         print(f"(d) NCCL, a world of one on (1, 1): image {'bitwise equal to' if same else 'DIFFERS from'}"
               f" the render without a mesh; PNG {'byte-equal' if nccl_png else 'DIFFERS'}")
         check(same and nccl_png, "(d) the NCCL (1, 1) render differs from the render without a mesh")
+
+        # (f) The session's branches under a mesh: a time budget and a
+        # checkpoint on (2, 1), a progress callback on rank 0 alone. Rank
+        # 0's clock decides for both, and only rank 0 writes.
+        ranks = spawn_ranks({"kind": "d"}, 2, tmp)
+        agreed = [r["agree"] for r in ranks]
+        for r in ranks:
+            a = r["agree"]
+            print(f"(f) rank {r['rank']} on (2, 1), budget {AGREE_BUDGET_S} s and a checkpoint: "
+                  f"{a['status']} at {a['samples']} of 256 spp, {a['chunks']} chunks, "
+                  f"{a['launches']} launches, {len(a['calls'])} callbacks, {a['wall_s']:.3f} s")
+        check(all(a["status"] == "DONE" for a in agreed)
+              and agreed[0]["samples"] == agreed[1]["samples"]
+              and all(a["launches"] == a["chunks"] == agreed[0]["chunks"] > 0 for a in agreed),
+              f"(f) the ranks took different branches: {agreed}")
+        check(agreed[0]["calls"][-1:] == ["DONE"] and agreed[1]["calls"] == [],
+              f"(f) callbacks {[a['calls'] for a in agreed]}")
+        check(os.path.exists(os.path.join(tmp, "ck0.npz"))
+              and not os.path.exists(os.path.join(tmp, "ck1.npz")),
+              "(f) a rank other than 0 wrote its checkpoint, or rank 0 wrote none")
+        mesh_record["agree_2x1"] = agreed
     return mesh_record
+
+
+# Phase 8. The session's branches at the main path's full width.
+# A resumed render against the straight one, and a budgeted render against
+# a straight render at its sample count (tests/test_render.py's bars; the
+# draws are keyed by (pixel, sample), so bitwise is expected).
+RESUME_RTOL, RESUME_ATOL = 1e-4, 1e-5
+BUDGET_RTOL, BUDGET_ATOL = 1e-5, 1e-6
+# (d)'s budget over a 4096-spp render: tens of its 128 chunks.
+BUDGET_SPP, BUDGET_S = 4096, 0.05
+# The checkpoint keys of cornelis_tpu/film.py:72-93.
+CHECKPOINT_KEYS = ["next_sample", "radiance_sum", "sample_count", "seed"]
+# The 128x128 live golden of tests/test_golden_image.py on the port's
+# wavefront: 96 spp as two chunks, 8x8 regions against the reference's
+# 16384-spp render, regions where a golden pixel clips left out.
+LIVE_GOLDEN = os.path.join(REPO, "tests", "golden", "reference_cornell_512.png")
+LIVE = dict(width=128, spp=96, grid=8)
+
+
+def medians_ms(fn, reps=5, sync=None):
+    """(median, sorted runs) in ms of `reps` calls of fn(), each between
+    two syncs (the card's by default)."""
+    import torch
+
+    sync = sync or torch.cuda.synchronize
+    runs = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(runs), sorted(runs)
+
+
+def _host_steps(linear, tmp: str) -> dict:
+    """The film's host steps on one linear frame, each way: {name: fn}."""
+    import numpy as np
+    import torch
+
+    from cornelis_tpu_torch import native
+    from cornelis_tpu_torch.math import color
+    from cornelis_tpu_torch.utils import png
+
+    dst = np.zeros_like(linear)
+    srgb8 = color.quantize_to_8bit(color.srgb_encode(torch.from_numpy(linear))).numpy()
+    path = os.path.join(tmp, f"split{os.getpid()}.png")
+    return {
+        "accumulate, numpy": lambda: np.add(dst, linear, out=dst),
+        "accumulate, native": lambda: native.accumulate(dst, linear),
+        "tonemap, torch on the host": lambda: color.quantize_to_8bit(
+            color.srgb_encode(torch.from_numpy(linear))).numpy(),
+        "tonemap, native": lambda: native.srgb_quantize(linear),
+        "write, Python": lambda: png.write_png(path, srgb8),
+        "write, native": lambda: native.write_png(path, srgb8),
+    }
+
+
+def cold_split(spec_path: str) -> int:
+    """One fresh process of phase 8g: each host step's first call here,
+    in the spec's order. Prints its record as one "COLD {json}" line."""
+    import numpy as np
+
+    sys.path.insert(0, REPO)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    steps = _host_steps(np.load(spec["linear"]), spec["tmp"])
+    out = {}
+    for name in spec["order"]:
+        t0 = time.perf_counter()
+        steps[name]()
+        out[name] = (time.perf_counter() - t0) * 1e3
+    print("COLD " + json.dumps(out), flush=True)
+    return 0
+
+
+def png_split(radiance_sum, samples: int, tmp: str, card: str) -> dict:
+    """Where the PNG wall of a 512x512 frame goes on this host: the copy of
+    the device accumulator to the host and the tonemap on the card (median
+    of 5), then the film's accumulate, tonemap and PNG write each way, the
+    port's numpy or torch step against the native library's, warm (20
+    rounds in turns, the order swapped each round) and cold (the first
+    call in a fresh process, six processes, the order swapped each)."""
+    import numpy as np
+    import torch
+
+    from cornelis_tpu_torch.film import Film
+    from cornelis_tpu_torch.math import color
+
+    split = {}
+
+    def report(name, runs, how):
+        runs = sorted(runs)
+        n = len(runs)
+        split[f"{name}, {how}"] = dict(median_ms=statistics.median(runs), q1_ms=runs[n // 4],
+                                       q3_ms=runs[(3 * n) // 4], runs_ms=runs)
+        print(f"(g) {name}, {how}: median {statistics.median(runs):.3f} ms, quartiles "
+              f"{runs[n // 4]:.3f}-{runs[(3 * n) // 4]:.3f}, {n} runs on {card}")
+
+    for name, fn in (("copy to host", lambda: radiance_sum.cpu()),
+                     ("tonemap, torch on the card + copy", lambda: color.quantize_to_8bit(
+                         color.srgb_encode(radiance_sum / samples)).cpu())):
+        fn()
+        report(name, medians_ms(fn)[1], "warm")
+    linear = radiance_sum.cpu().numpy() / samples
+    steps = _host_steps(linear, tmp)
+    pairs = [tuple(steps)[i:i + 2] for i in range(0, len(steps), 2)]
+    runs = {name: [] for name in steps}
+    for fn in steps.values():
+        fn()
+    for r in range(20):
+        for pair in pairs:
+            for name in pair[::-1] if r % 2 else pair:
+                t0 = time.perf_counter()
+                steps[name]()
+                runs[name].append((time.perf_counter() - t0) * 1e3)
+    for name, r in runs.items():
+        report(name, r, "warm")
+
+    np.save(os.path.join(tmp, "linear.npy"), linear)
+    cold = {name: [] for name in steps}
+    for i in range(6):
+        order = [name for pair in pairs for name in (pair[::-1] if i % 2 else pair)]
+        spec = os.path.join(tmp, "cold.json")
+        with open(spec, "w") as f:
+            json.dump(dict(linear=os.path.join(tmp, "linear.npy"), tmp=tmp, order=order), f)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--cold-split", spec],
+                              capture_output=True, text=True, timeout=RANK_TIMEOUT)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("COLD ")]
+        check(proc.returncode == 0 and lines, f"(g) a cold process failed:\n{proc.stderr[-3000:]}")
+        for name, ms in json.loads(lines[-1][5:]).items():
+            cold[name].append(ms)
+    for name, r in cold.items():
+        report(name, r, "cold")
+
+    film = Film(linear.shape[1], linear.shape[0])
+    film.add_samples(linear * samples, samples)
+    path = os.path.join(tmp, "film.png")
+    film.save_png(path)
+    report("Film.save_png (as chosen)", medians_ms(lambda: film.save_png(path))[1], "warm")
+    return split
+
+
+def live_golden() -> dict:
+    """tests/test_golden_image.py's checks on the port's wavefront
+    (integrator.render_chunk) on the card: Cornell at 128x128, 96 spp."""
+    import numpy as np
+    import torch
+
+    from cornelis_tpu_torch.integrator import render_chunk
+    from cornelis_tpu_torch.math.color import srgb_decode
+    from cornelis_tpu_torch.rng import make_key
+    from cornelis_tpu_torch.scene.compile import compile_scene, scene_arrays
+    from cornelis_tpu_torch.scene.library import cornell_box
+    from cornelis_tpu_torch.utils.png import read_png
+
+    w, spp, grid = LIVE["width"], LIVE["spp"], LIVE["grid"]
+    scene = scene_arrays(compile_scene(cornell_box(), device="cuda"))
+    t0 = time.perf_counter()
+    ours = sum(render_chunk(scene, make_key(SEED, "cuda"), off, width=w, height=w,
+                            spp_chunk=spp // 2, spp_total=spp, max_depth=64)
+               for off in (0, spp // 2)).cpu().numpy() / spp
+    seconds = time.perf_counter() - t0
+    raw8 = read_png(LIVE_GOLDEN)
+    gold = srgb_decode(torch.from_numpy(raw8.astype(np.float32) / 255.0)).numpy()
+    blocks = lambda img: img.reshape(grid, img.shape[0] // grid, grid, img.shape[1] // grid,
+                                     3).mean(axis=(1, 3))
+    g = raw8.shape[0] // grid
+    clean = (raw8.max(axis=-1) >= 250).reshape(grid, g, grid, g).mean(axis=(1, 3)) < 0.001
+    diff = np.abs(blocks(ours) - blocks(gold))
+    px = (w // grid) ** 2
+    tol = 6.0 * ours.reshape(grid, w // grid, grid, w // grid, 3).std(axis=(1, 3)) / np.sqrt(px) + 0.02
+    bad = int((clean[..., None] & (diff >= tol)).sum())
+    bias = (blocks(ours) - blocks(gold))[clean].mean(axis=0)
+
+    def walls(img):
+        h = img.shape[0]
+        left = img[h // 4:3 * h // 4, :h // 8].mean(axis=(0, 1))
+        right = img[h // 4:3 * h // 4, -h // 8:].mean(axis=(0, 1))
+        return left[1] > max(left[0], left[2]) and right[0] > max(right[1], right[2])
+
+    record = dict(seconds=seconds, clean_regions=int(clean.sum()), bad_regions=bad,
+                  max_clean_diff=float(diff[clean].max()), bias=[float(b) for b in bias],
+                  walls_ok=bool(walls(ours) and walls(gold)))
+    print(f"(h) the live golden on the wavefront, {w}x{w}, {spp} spp, in {seconds:.2f} s: "
+          f"{record['clean_regions']} clean regions, {bad} outside 6 sigma + 0.02, max clean "
+          f"diff {record['max_clean_diff']:.4f}, bias {[round(b, 4) for b in record['bias']]}")
+    check(np.isfinite(ours).all() and record["clean_regions"] >= 20,
+          "(h) the golden is clip-dominated or the render not finite")
+    check(bad == 0, f"(h) {bad} clean regions off the golden")
+    check(bool(np.all(np.abs(bias) < 0.02) and np.all(bias > -0.01)), f"(h) bias {bias}")
+    check(record["walls_ok"], "(h) the wall colours are wrong")
+    return record
+
+
+def session_phase(card: str) -> dict:
+    """Phase 8: RenderSession at the main path's full width (Cornell
+    512x512, 256 spp, max_depth 64, path/uniform) under every new branch,
+    each launching K1: (a) a progress callback, against the plain
+    session's wall; (b) an abort; (c) a checkpoint and its resume; (d) a
+    time budget; (e) the command line with its new flags; (f) the native
+    library and the PNG bytes; (g) the PNG wall's split on this host; (h)
+    the 128x128 live golden on the wavefront. Returns the {"session": ...}
+    record."""
+    import numpy as np
+    import torch
+
+    from cornelis_tpu_torch import (
+        RenderCommand,
+        RenderOptions,
+        RenderSession,
+        RenderStatus,
+        cornell_box,
+        native,
+    )
+    from cornelis_tpu_torch.cli import main as cli_main
+    from cornelis_tpu_torch.film import Film
+    from cornelis_tpu_torch.ops import megakernel
+    from cornelis_tpu_torch.utils import png
+    from cornelis_tpu_torch.utils.logging import logger
+
+    record = {}
+    main_opts = dict(output=None)
+    target = 256 // RenderOptions().resolved_spp_chunk()
+
+    def run(session, on_progress=None):
+        megakernel.LAUNCHES = 0
+        result = session.render(on_progress)
+        torch.cuda.synchronize()
+        return result, megakernel.LAUNCHES
+
+    plain = RenderSession(cornell_box(), RenderOptions(**main_opts))
+    straight, launches = run(plain)
+    check(straight.status == RenderStatus.DONE and launches == target == straight.chunks,
+          f"the plain session: {straight.status}, {launches} launches")
+
+    # (a) Progress, and its wall against the plain session's, in turns.
+    events = []
+
+    def on_progress(p, status):
+        events.append((p.chunks_dispatched, p.chunks_completed, status, p.rays_per_second))
+        return RenderCommand.CONTINUE
+
+    # The three in turns, the order rotated and reversed each round:
+    # "quiet" is the plain session with the logger at WARNING (-q).
+    kinds = ("plain", "progress", "quiet")
+    walls = {kind: [] for kind in kinds}
+    level = logger.level
+    for r in range(12):
+        order = kinds[r % 3:] + kinds[:r % 3]
+        for kind in order[::-1] if r % 2 else order:
+            if kind == "progress":
+                events.clear()
+            logger.setLevel("WARNING" if kind == "quiet" else level)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run(plain, on_progress if kind == "progress" else None)
+            walls[kind].append((time.perf_counter() - t0) * 1e3)
+            if kind == "progress":
+                result, launches = out
+    logger.setLevel(level)
+    prev = 0
+    for dispatched, done, _status, _rate in events:
+        check(done <= dispatched <= target and done >= prev,
+              f"(a) progress went wrong: {events}")
+        prev = done
+    final = events[-1]
+    running = [e for e in events if e[2] == RenderStatus.RUNNING]
+    check(final[:3] == (target, target, RenderStatus.DONE) and final[3] > 0
+          and result.status == RenderStatus.DONE and launches == target,
+          f"(a) final progress {final}, {launches} launches")
+    lag = [d - c for d, c, _s, _r in running]
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    quart = {k: f"{sorted(v)[len(v) // 4]:.3f}-{sorted(v)[3 * len(v) // 4]:.3f}"
+             for k, v in walls.items()}
+    print(f"(a) progress: {len(running)} callbacks while running, completed behind dispatched by "
+          f"{lag}, final {final[:2]} of {target}, {final[3] / 1e6:.1f} Mrays/s; session wall "
+          f"(no PNG, 12 each in turns), median and quartiles: with the callback "
+          f"{med['progress']:.3f} ms {quart['progress']}, plain {med['plain']:.3f} ms "
+          f"{quart['plain']}, plain at -q {med['quiet']:.3f} ms {quart['quiet']}; callback over "
+          f"plain {med['progress'] / med['plain']:.4f}, plain over -q "
+          f"{med['plain'] / med['quiet']:.4f} on {card}")
+    record["progress"] = dict(walls_ms=walls, median_ms=med, lag=lag, callbacks=len(events),
+                              rays_per_second=final[3])
+
+    # (b) Abort at the first callback.
+    result, launches = run(plain, lambda p, s: RenderCommand.ABORT)
+    print(f"(b) abort at the first callback: {result.status.name}, {result.film.sample_count} "
+          f"spp in the film, {launches} launch")
+    check(result.status == RenderStatus.ABORTED and result.film.sample_count == 32
+          and launches == 1, "(b) the abort did not stop after one chunk")
+    record["abort"] = dict(status=result.status.name, samples=result.film.sample_count,
+                           launches=launches)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (c) Checkpoint: abort after chunk 3, then resume.
+        ck = os.path.join(tmp, "film.npz")
+        opts = RenderOptions(**main_opts, checkpoint=ck)
+        aborted, launches_a = run(RenderSession(cornell_box(), opts), lambda p, s: (
+            RenderCommand.ABORT if s == RenderStatus.RUNNING and p.chunks_dispatched >= 3
+            else RenderCommand.CONTINUE))
+        with np.load(ck) as data:
+            keys, at = sorted(data.files), int(data["next_sample"])
+        resumed, launches_r = run(RenderSession(cornell_box(), opts))
+        diff = float(np.abs(resumed.image - straight.image).max())
+        bitwise = bool(np.array_equal(resumed.image, straight.image))
+        print(f"(c) checkpoint: aborted {aborted.status.name} after {launches_a} launches at "
+              f"sample {at}, npz keys {keys}; resumed {resumed.status.name} with {launches_r} "
+              f"launches; image {'bitwise equal to' if bitwise else 'differs from'} the straight "
+              f"session's, max |diff| {diff:.3g}")
+        check(aborted.status == RenderStatus.ABORTED and launches_a == 3 and at == 96
+              and keys == CHECKPOINT_KEYS, "(c) the checkpoint run")
+        check(resumed.status == RenderStatus.DONE and launches_r == target - 3
+              and resumed.film.sample_count == 256, "(c) the resume")
+        check(np.allclose(resumed.image, straight.image, rtol=RESUME_RTOL, atol=RESUME_ATOL),
+              f"(c) resumed image off by {diff}")
+        record["checkpoint"] = dict(launches=[launches_a, launches_r], max_abs_diff=diff,
+                                    bitwise=bitwise)
+
+        # (d) Time budget over a 4096-spp render.
+        session = RenderSession(cornell_box(), RenderOptions(**main_opts, samples_aa=BUDGET_SPP,
+                                                             time_budget_s=BUDGET_S))
+        t0 = time.perf_counter()
+        budgeted, launches = run(session)
+        wall = time.perf_counter() - t0
+        n = budgeted.film.sample_count
+        check(budgeted.status == RenderStatus.DONE and n % 32 == 0 and 0 < n < BUDGET_SPP
+              and launches == n // 32, f"(d) {budgeted.status}, {n} spp, {launches} launches")
+        same_n, _ = run(RenderSession(cornell_box(), RenderOptions(**main_opts, samples_aa=n)))
+        diff = float(np.abs(budgeted.image - same_n.image).max())
+        print(f"(d) budget {BUDGET_S} s over {BUDGET_SPP} spp: {budgeted.status.name} at {n} spp "
+              f"({launches} launches) in {wall:.4f} s; against a straight {n}-spp render max "
+              f"|diff| {diff:.3g}")
+        check(np.allclose(budgeted.image, same_n.image, rtol=BUDGET_RTOL, atol=BUDGET_ATOL),
+              f"(d) budgeted image off by {diff}")
+        record["budget"] = dict(samples=n, launches=launches, wall_s=wall, max_abs_diff=diff)
+
+        # (e) The command line with its new flags.
+        cli_png, cli_ck, prof = (os.path.join(tmp, f) for f in ("cli.png", "cli.npz", "prof"))
+        level = logger.level
+        megakernel.LAUNCHES = 0
+        try:
+            rc = cli_main(["--checkpoint", cli_ck, "--time-budget", str(BUDGET_S),
+                           "--standard-srgb", "--profile-dir", prof, "-q", "-o", cli_png])
+            quiet = logger.level
+        finally:
+            logger.setLevel(level)
+        launches = megakernel.LAUNCHES
+        traces = sorted(os.listdir(prof)) if os.path.isdir(prof) else []
+        kernel_events = 0
+        for name in traces:
+            with open(os.path.join(prof, name)) as f:
+                kernel_events += sum(e.get("cat") == "kernel" for e in json.load(f)["traceEvents"])
+        film, next_sample, _ = Film.load_checkpoint(cli_ck)
+        same = bool(np.array_equal(png.read_png(cli_png), film.to_srgb8(standard_srgb=True)))
+        print(f"(e) python -m cornelis_tpu_torch --checkpoint --time-budget {BUDGET_S} "
+              f"--standard-srgb --profile-dir -q: rc {rc}, {launches} launches, checkpoint at "
+              f"sample {next_sample}, PNG {'equal to' if same else 'DIFFERS from'} the "
+              f"checkpoint film's standard-sRGB tonemap, traces {traces} with {kernel_events} "
+              f"kernel events")
+        check(rc == 0 and launches > 0 and next_sample == film.sample_count == 32 * launches,
+              "(e) the command line's render")
+        check(quiet == 30 and same and len(traces) == 1, "(e) -q, --standard-srgb or the trace")
+        record["cli"] = dict(launches=launches, samples=next_sample, kernel_events=kernel_events)
+
+        # (f) The native library on this host, and the session's PNG.
+        lib = native.build()
+        session_png = os.path.join(tmp, "session.png")
+        result, _ = run(RenderSession(cornell_box(), RenderOptions(output=session_png)))
+        with open(session_png, "rb") as f:
+            png_bytes = f.read()
+        srgb8 = result.film.to_srgb8()
+        equal = png_bytes == png.encode_png(srgb8)
+        native_equal = png_bytes == native.encode_png(srgb8)
+        print(f"(f) native library {'loaded' if native.available() else 'NOT loaded'} from "
+              f"{os.path.relpath(lib, REPO) if lib else None}; the session's PNG "
+              f"{'byte-equal to' if equal else 'DIFFERS from'} the Python encoder's and "
+              f"{'byte-equal to' if native_equal else 'DIFFERS from'} the native encoder's "
+              "on the same uint8 image")
+        check(native.available() and lib is not None, "(f) the native library did not load")
+        check(equal and native_equal, "(f) the session's PNG differs from an encoder's bytes")
+
+        # (g) The PNG wall's split on this host.
+        record["png_split"] = png_split(
+            torch.from_numpy(straight.film.radiance_sum).cuda(), 256, tmp, card)
+        with_png = RenderSession(cornell_box(), RenderOptions(output=session_png))
+        run(with_png)
+        record["wall_ms"] = {"PNG written": medians_ms(lambda: run(with_png))[0],
+                             "no PNG": medians_ms(lambda: run(plain))[0]}
+        print(f"(g) session wall, median of 5: PNG written {record['wall_ms']['PNG written']:.3f} "
+              f"ms, no PNG {record['wall_ms']['no PNG']:.3f} ms on {card}")
+
+    # (h) The live golden on the wavefront.
+    record["live_golden"] = live_golden()
+    return record
 
 
 def main() -> int:
@@ -1743,6 +2197,11 @@ def main() -> int:
     mesh_record = mesh_phase(records, (k0, k1, root), card)
     phase_done()
 
+    phase("8. the session at the main path's width: progress, abort, checkpoint, budget, CLI, "
+          "native runtime, PNG split, live golden")
+    session_record = session_phase(card)
+    phase_done()
+
     check(not spilled, f"megakernel instantiations spill: {spilled}")
     kernels = []
     for rec in records.values():
@@ -1755,6 +2214,7 @@ def main() -> int:
     print(card)
     print(json.dumps({"diff": diff_record}))
     print(json.dumps({"mesh": mesh_record}))
+    print(json.dumps({"session": session_record}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1767,4 +2227,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:  # one rank of phase 7, started by spawn_ranks
         sys.exit(rank_main(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--cold-split"]:  # one fresh process of phase 8g
+        sys.exit(cold_split(sys.argv[2]))
     sys.exit(main())

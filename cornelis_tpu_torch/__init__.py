@@ -11,11 +11,25 @@ wavefront (integrator.py) under autograd, the differentiable mode
 (diff/: render_diff and InverseRenderer); and the render and the
 inverse-render step over a (tiles, samples) mesh of torch.distributed
 ranks (parallel/, diff/sharded.py), each rank's share traced by the
-kernel through its pixel-id operand.
+kernel through its pixel-id operand. The render session has progress,
+abort, checkpoint/resume and a time budget, agreed by every rank under a
+mesh (render.py). The native host runtime (native/) is the JAX
+package's, built with g++ at first use.
+
+Exports every name of `cornelis_tpu/__init__.py`; `render_chunk` and
+`trace_paths` are the torch wavefront's, as there they are the XLA one's.
 """
 
-from .camera import Camera, generate_rays, look_at_host
+from .camera import (
+    Camera,
+    default_camera,
+    generate_rays,
+    horizontal_fov_35mm,
+    look_at,
+    look_at_host,
+)
 from .film import Film
+from .integrator import render_chunk, trace_paths
 from .math.vec import RGB, Basis, Vec3, construct_basis, cross, dot, mag2, normalize
 from .options import RenderOptions
 from .parallel import (
@@ -25,7 +39,15 @@ from .parallel import (
     render_chunk_mesh,
     render_chunk_mesh_megakernel,
 )
-from .render import RenderResult, RenderSession, RenderStatus
+from .render import (
+    ProgressCallback,
+    RenderCommand,
+    RenderProgress,
+    RenderResult,
+    RenderSession,
+    RenderStatus,
+    render_scene,
+)
 from .scene.compile import (
     SceneArrays,
     SceneTables,
@@ -62,8 +84,11 @@ __all__ = [
     "Mesh",
     "PerspectiveCameraDescription",
     "PlaneDescription",
+    "ProgressCallback",
     "RGB",
+    "RenderCommand",
     "RenderOptions",
+    "RenderProgress",
     "RenderResult",
     "RenderSession",
     "RenderStatus",
@@ -78,19 +103,25 @@ __all__ = [
     "cornell_box",
     "cornell_panel",
     "cross",
+    "default_camera",
     "dot",
     "from_numpy_scene",
     "generate_rays",
+    "horizontal_fov_35mm",
     "initialize_distributed",
+    "look_at",
     "look_at_host",
     "mag2",
     "make_mesh",
     "normalize",
+    "render_chunk",
     "render_chunk_mesh",
     "render_chunk_mesh_megakernel",
+    "render_scene",
     "scene_arrays",
     "sdf_gallery",
     "sphere_grid",
     "sphere_on_plane",
     "tables_from_arrays",
+    "trace_paths",
 ]

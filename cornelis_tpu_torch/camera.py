@@ -7,12 +7,13 @@ aspect ratio multiplies the vertical axis v.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-from .math.vec import Vec3, normalize_unchecked
+from .math.vec import Vec3, cross, normalize_unchecked, vec3
 
 
 class Camera(NamedTuple):
@@ -23,6 +24,49 @@ class Camera(NamedTuple):
     corner: Vec3
     u: Vec3
     v: Vec3
+
+
+# sin(0.5): the default camera's 1-radian horizontal FOV constant
+# (Camera.cpp:7-9).
+_SIN_HALF = 0.4794255386
+
+
+def default_camera() -> Camera:
+    """Default-constructed camera (Camera.cpp:7-9)."""
+    return Camera(
+        eye=vec3(0.0, 0.0, 0.0),
+        corner=vec3(-_SIN_HALF, -_SIN_HALF, 1.0),
+        u=vec3(2 * _SIN_HALF, 0.0, 0.0),
+        v=vec3(0.0, 2 * _SIN_HALF, 0.0),
+    )
+
+
+def look_at(origin, target, aspect, horizontal_fov) -> Camera:
+    """Build a camera from origin/target (Camera.cpp:15-34) in tensor ops,
+    differentiable in its inputs: up is fixed (0,1,0); fovScale =
+    2 sin(hFov/2); u = (up x dir) * fovScale (unnormalized -- reference
+    quirk), v = (u x dir) * aspect * fovScale; corner = dir - u/2 - v/2."""
+    o = origin if isinstance(origin, Vec3) else vec3(*origin)
+    t = target if isinstance(target, Vec3) else vec3(*target)
+    up = vec3(0.0, 1.0, 0.0)
+
+    direction = normalize_unchecked(t - o)
+    u = cross(up, direction)
+    v = cross(u, direction)
+
+    fov_scale = 2.0 * torch.sin(torch.as_tensor(horizontal_fov * 0.5, dtype=torch.float32))
+    u = u * fov_scale
+    v = v * (aspect * fov_scale)
+
+    corner = direction - u * 0.5 - v * 0.5
+    return Camera(eye=o, corner=corner, u=u, v=v)
+
+
+def horizontal_fov_35mm(focal_length: float) -> float:
+    """Horizontal FOV of a 35mm-frame lens (Camera.cpp:36-39)."""
+    if focal_length <= 0.0:
+        raise ValueError("Does not support zero or negative focal lengths.")
+    return 2.0 * math.atan(36.0 / (2.0 * focal_length))
 
 
 def look_at_host(origin, target, aspect, horizontal_fov) -> Camera:

@@ -88,6 +88,17 @@ def distribution_gtr2(cos_theta_h: Tensor, alpha: Tensor) -> Tensor:
     return torch.where(is_almost_zero(alpha2), 1.0, d)
 
 
+def distribution_gtr3p2(cos_theta_h: Tensor, alpha: Tensor) -> Tensor:
+    """Burley's GTR with gamma=1.5 (Materials.cpp:4-13), in the
+    cancellation-free form of the JAX package; its floor keeps the ^1.5
+    float32-normal in the division's backward."""
+    alpha2 = alpha * alpha
+    c2 = cos_theta_h * cos_theta_h
+    base = (1.0 - c2) + alpha2 * c2
+    d = ((alpha2 + alpha) / (2.0 * PI)) / torch.pow(maximum(base, 1e-8), 1.5)
+    return torch.where(is_almost_zero(alpha2), 1.0, d)
+
+
 def lambda_tr(tan_theta: Tensor, alpha: Tensor) -> Tensor:
     """Smith lambda for Trowbridge-Reitz (Materials.cpp:28-32)."""
     inf = torch.isinf(tan_theta)

@@ -51,6 +51,29 @@ class Vec3(NamedTuple):
 RGB = Vec3
 
 
+def vec3(x: Scalar, y: Scalar, z: Scalar, dtype=torch.float32) -> Vec3:
+    """A Vec3 from scalars or tensors, Python floats promoted to tensors."""
+    return Vec3(*(torch.as_tensor(c, dtype=dtype) for c in (x, y, z)))
+
+
+def full_like(v: Vec3, value: float) -> Vec3:
+    return Vec3(*(torch.full_like(c, value) for c in v))
+
+
+def broadcast_to(v: Vec3, shape) -> Vec3:
+    return Vec3(*(torch.broadcast_to(c, shape) for c in v))
+
+
+def from_array(a: Tensor) -> Vec3:
+    """(..., 3) tensor -> Vec3. Host-side convenience; avoid in hot paths."""
+    return Vec3(a[..., 0], a[..., 1], a[..., 2])
+
+
+def to_array(v: Vec3) -> Tensor:
+    """Vec3 -> (..., 3) tensor. Host-side convenience (image assembly etc.)."""
+    return torch.stack([v.x, v.y, v.z], dim=-1)
+
+
 def dot(a: Vec3, b: Vec3) -> Tensor:
     """Dot product (Math.hpp:278)."""
     return a.x * b.x + a.y * b.y + a.z * b.z
@@ -143,6 +166,13 @@ def where(mask: Tensor, a: Vec3, b: Vec3) -> Vec3:
         torch.where(mask, a.y, b.y),
         torch.where(mask, a.z, b.z),
     )
+
+
+def clamp(v: Vec3, lo: Scalar, hi: Scalar) -> Vec3:
+    """Componentwise clamp (RGB::clamp, Color.cpp:26-30) with jnp.clip's
+    ties: minimum(maximum(x, lo), hi)."""
+    return Vec3(*(torch.minimum(torch.maximum(c, torch.as_tensor(lo).to(c)),
+                                torch.as_tensor(hi).to(c)) for c in v))
 
 
 class Basis(NamedTuple):

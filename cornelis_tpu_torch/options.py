@@ -5,7 +5,9 @@ with the reference's defaults (RenderOptions.hpp:6-16, Render.cpp:264,307):
 512x512, 256 spp, max_depth 64, the reference seed, the path integrator
 and the uniform sampler. New here: `device`. The tables' device decides
 what runs: a CUDA device launches the hand-written kernel, the CPU runs
-its plain version. Checkpoint and time budget come in later work.
+its plain version. The JAX package's TPU scheduling fields (`backend`,
+`warmup_threshold_s`, `warm_device_max_age_s`, `backend_schedule`) have
+no counterpart: `device` takes their place.
 """
 
 from __future__ import annotations
@@ -32,6 +34,12 @@ class RenderOptions:
     spp_chunk: int = 0
     # Output path; None = don't save (reference: "cornelisrender2.png").
     output: Optional[str] = "cornelisrender2.png"
+    # Use the standard sRGB 12.92 linear slope instead of the reference's
+    # 12.95 quirk (src/Color.cpp:47,68).
+    standard_srgb: bool = False
+    # Checkpoint file updated after every chunk, and resumed from when it
+    # exists (the JAX package's npz keys); None disables.
+    checkpoint: Optional[str] = None
     # "uniform" (Threefry) or "sobol" (Owen-scrambled Sobol).
     sampler: str = "uniform"
     # "path" replicates the reference; "nee" is the corrected estimator
@@ -52,6 +60,12 @@ class RenderOptions:
     # sharding spec; the reference's 32x32 parallel grain, Render.cpp:327).
     # 0 = flat row-band split. Ignored without mesh_shape.
     tile_size: int = 32
+    # Progressive mode: stop dispatching new sample chunks once this many
+    # seconds have elapsed (the reference's planned "sample for x seconds",
+    # README Milestone 4). The image normalizes by the samples actually
+    # taken; combine with `checkpoint` to keep refining across runs.
+    # 0 = no time budget (render all samples_aa).
+    time_budget_s: float = 0.0
 
     def validate(self) -> None:
         if self.samples_aa <= 0:
@@ -64,6 +78,8 @@ class RenderOptions:
             raise ValueError("spp_chunk must be >= 0 (0 = auto).")
         if self.tile_size < 0:
             raise ValueError("tile_size must be >= 0 (0 = flat split).")
+        if self.time_budget_s < 0:
+            raise ValueError("time_budget_s must be >= 0 (0 = unlimited).")
         if self.sampler not in ("uniform", "sobol"):
             raise ValueError(f"sampler must be 'uniform' or 'sobol' (not {self.sampler!r}).")
         if self.integrator not in ("path", "nee"):

@@ -113,6 +113,12 @@ def uniform(key: torch.Tensor, num: int) -> torch.Tensor:
     return bits_to_uniform(bits(key, num))
 
 
+def ray_keys(root: torch.Tensor, ray_ids: torch.Tensor) -> torch.Tensor:
+    """Per-ray keys fold_in(root, ray_id) from global ray ids (uint32
+    values): (N, 2)."""
+    return fold_in(root, ray_ids.to(torch.int64) & _MASK)
+
+
 def pixel_sample_keys(root: torch.Tensor, pixel_ids: torch.Tensor,
                       sample_idx: torch.Tensor) -> torch.Tensor:
     """Per-ray keys fold_in(fold_in(root, pixel), sample): (N, 2)."""

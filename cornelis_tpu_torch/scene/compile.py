@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..camera import Camera, camera_from_row, look_at_host
+from ..math.linalg import decompose_trs
 from ..math.vec import Vec3
 from .description import SDF_KINDS, SceneDescription
 
@@ -148,32 +149,10 @@ def tables_from_arrays(scene: SceneArrays) -> SceneTables:
         )
 
 
-def _decompose_trs(m):
-    """(R (3,3), t (3,), s) of a translate * rotate * uniform-scale 4x4;
-    `cornelis_tpu.math.linalg.decompose_trs` in numpy."""
-    m = np.asarray(m, np.float32)
-    if m.shape != (4, 4):
-        raise ValueError(f"transform must be 4x4, got {m.shape}")
-    if not np.allclose(m[3], [0.0, 0.0, 0.0, 1.0], atol=1e-5):
-        raise ValueError("transform must be affine (last row 0 0 0 1)")
-    lin = np.asarray(m[:3, :3], np.float64)
-    t = np.asarray(m[:3, 3], np.float32)
-    s = float(np.cbrt(np.linalg.det(lin)))
-    if not s > 0.0:
-        raise ValueError("transform must have positive uniform scale")
-    r = lin / s
-    if not np.allclose(r @ r.T, np.eye(3), atol=1e-4):
-        raise ValueError(
-            "transform linear part must be rotation * uniform scale "
-            "(no shear / non-uniform scale)"
-        )
-    return r.astype(np.float32), t, s
-
-
 def _trs(obj):
     if obj.transform is None:
         return np.eye(3, dtype=np.float32), np.zeros(3, np.float32), 1.0
-    return _decompose_trs(obj.transform)
+    return decompose_trs(obj.transform)
 
 
 def _apply_pt(r, t, s, p):

@@ -2,7 +2,8 @@
 
 Replaces the reference's vendored stb_image_write (only stbi_write_png is
 used, src/Render.cpp:263). The same codec as `cornelis_tpu/utils/png.py`;
-the port has no native encoder.
+the native encoder (native/) writes the same bytes. The film writes with
+this one (film.py says why).
 """
 
 from __future__ import annotations

@@ -12,7 +12,12 @@ The spec names the world ("port", "world") and what every rank runs
     coordinator flags, in the rank's own directory "<cwd>/rank<r>";
   * "train": one step of diff.make_sharded_train_step on Cornell over the
     mesh "mesh" (fields, shape and key in the spec); rank 0 saves the
-    loss, the gradients and the new params to "out" (.npz).
+    loss, the gradients and the new params to "out" (.npz);
+  * "agree": RenderSession over a mesh with a progress callback on rank 0
+    alone, each rank checkpointing to "ck<rank>.npz" in "cwd"; "case"
+    "budget" adds the time budget "budget", "abort" makes rank 0's
+    callback abort after its first chunk. Each rank prints its status,
+    samples and chunks as "agree <json>".
 
 Each rank prints one line and exits 0, or raises.
 """
@@ -112,6 +117,28 @@ def train_step_result(spec: dict, mesh, device: str = "cpu") -> dict:
     return out
 
 
+def _agree_case(spec: dict, rank: int) -> None:
+    """One rank of an "agree" spec: the session's branches decided on rank
+    0 alone, which every rank must follow."""
+    from cornelis_tpu_torch import RenderCommand, RenderOptions, RenderSession, cornell_box
+
+    calls = []
+
+    def on_progress(progress, status):
+        calls.append(status.name)
+        if spec["case"] == "abort" and progress.chunks_dispatched >= 1:
+            return RenderCommand.ABORT
+        return RenderCommand.CONTINUE
+
+    opts = RenderOptions(**{**spec["options"], "mesh_shape": tuple(spec["mesh"]),
+                            "checkpoint": os.path.join(spec["cwd"], f"ck{rank}.npz"),
+                            "time_budget_s": spec.get("budget", 0.0)})
+    result = RenderSession(cornell_box(), opts).render(on_progress if rank == 0 else None)
+    record = dict(status=result.status.name, samples=result.film.sample_count,
+                  chunks=result.chunks, calls=calls)
+    print(f"agree {json.dumps(record)}", flush=True)
+
+
 def main(rank: int, spec_path: str) -> int:
     import torch
 
@@ -146,6 +173,8 @@ def main(rank: int, spec_path: str) -> int:
             if rank == 0:
                 np.save(spec["out"], result.image)
             print(f"[rank {rank}] session ok, {result.chunks} chunks", flush=True)
+        elif spec["kind"] == "agree":
+            _agree_case(spec, rank)
         elif spec["kind"] == "train":
             out = train_step_result(spec, make_mesh(spec["mesh"]))
             if rank == 0:

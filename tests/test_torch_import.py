@@ -69,6 +69,12 @@ def test_jax_is_really_blocked(tmp_path):
         "cornelis_tpu_torch.parallel",
         "cornelis_tpu_torch.parallel.mesh",
         "cornelis_tpu_torch.parallel.render",
+        "cornelis_tpu_torch.cli",
+        "cornelis_tpu_torch.render",
+        "cornelis_tpu_torch.film",
+        "cornelis_tpu_torch.native",
+        "cornelis_tpu_torch.math.linalg",
+        "cornelis_tpu_torch.utils.logging",
     ],
 )
 def test_import_without_jax(module, tmp_path):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time this tree's megakernel and zero fill against another tree's, in
-turns, on one CUDA device.
+"""Time this tree's megakernel, zero fill and scan probes against another
+tree's, in turns, on one CUDA device.
 
     mkdir -p OTHER
     git archive <commit> cornelis_tpu_torch | tar -x -C OTHER
@@ -18,7 +18,11 @@ It prints each row's readings, their medians, the spread of each side
 trees' outputs are bitwise equal and within 1e-4. Then the same turns for
 this tree's nee rows against its nee library built without -fmad=false (an
 experiment: the port builds it with the flag), and for K2's zero fill
-against the other tree's and torch.zeros (200 calls a reading).
+against the other tree's and torch.zeros (200 calls a reading). Last, the
+scan probes K5 (512 spheres) and K6 at their JAX shape, on the probe
+input, in the same turns with 200 launches a reading, and the share of
+lanes on which the two trees' outputs are bitwise equal, on the probe
+input and on the special lanes.
 
 Prints the card's name and power limit first and a JSON record last;
 imports no JAX.
@@ -44,7 +48,7 @@ VARIANTS = (("path", "uniform"), ("path", "sobol"), ("nee", "uniform"), ("nee", 
 ROWS = (("megakernel", "cornell_box", False), ("dynamic", "cornell_box", True),
         ("megakernel", "sdf_gallery", False))
 MODULES = ("ops.megakernel", "ops.lights", "ops.warm", "ops.build", "scene.compile",
-           "scene.library", "rng", "utils.timing")
+           "scene.library", "rng", "utils.timing", "probes.scene_table")
 
 
 def load_tree(root: str, alias: str) -> dict:
@@ -97,6 +101,32 @@ def agreement(x, y) -> dict:
             "within_1e-4": torch.isclose(x, y, rtol=1e-4, atol=1e-4).all(1).double().mean().item()}
 
 
+def probe_rows(other: dict, this: dict, event_ms) -> dict:
+    """K5 and K6 of both trees, in turns, on this tree's inputs."""
+    st = this["probes.scene_table"]
+    inputs = {"probe": st.probe_input("cuda"), "special": st.special_input("cuda")}
+    tab = st.table(st.DEFAULT_N, "cuda")
+    rows = {}
+    for kind in ("baked", "dynamic"):
+        def runner(tree, o, kind=kind):
+            mod = tree["probes.scene_table"]
+            if kind == "baked":
+                return lambda: mod.scan_baked(o, st.DEFAULT_N)
+            return lambda: mod.scan_dynamic(o, tab)
+
+        o = inputs["probe"]
+        res = summary(turns(runner(other, o), runner(this, o), ROUNDS, 200, event_ms))
+        res["bitwise"] = {name: (runner(other, x)() == runner(this, x)()).double().mean().item()
+                          for name, x in inputs.items()}
+        rows[kind] = res
+        print(f"scan_{kind} ({st.DEFAULT_N} spheres): other {res['a']['median']:.4f} ms (spread "
+              f"{res['a']['spread']:.4f}), this {res['b']['median']:.4f} ms (spread "
+              f"{res['b']['spread']:.4f}), this/other {res['b']['median'] / res['a']['median']:.3f}; "
+              f"lanes bitwise equal: probe input {res['bitwise']['probe']:.4%}, special lanes "
+              f"{res['bitwise']['special']:.4%}; readings {res['a']['ms']} / {res['b']['ms']}")
+    return rows
+
+
 def build_nee_with_fma(build) -> ctypes.CDLL:
     """This tree's nee library built without -fmad=false, beside the others."""
     out = build.BUILD_DIR / "ab" / "libmegakernel_nee_fma.so"
@@ -129,7 +159,7 @@ def main() -> int:
     for tree in (other, this):
         tree["ops.build"].build_all()
         tree["ops.warm"].warm_kernels()
-    record = {"card": card, "rounds": ROUNDS, "rows": {}, "fma": {}, "zero_fill": {}}
+    record = {"card": card, "rounds": ROUNDS, "rows": {}, "fma": {}, "zero_fill": {}, "probes": {}}
 
     print("== megakernel rows: other (a) and this tree (b), ms per launch")
     runners = {}
@@ -196,6 +226,9 @@ def main() -> int:
     print(f"zero_fill: other {res['a']['median']:.5f} ms, this {res['b']['median']:.5f} ms, "
           f"torch.zeros {res['torch.zeros']['median']:.5f} ms; readings {res['a']['ms']} / "
           f"{res['b']['ms']} / {zeros}")
+
+    print("== scan probes: other (a) and this tree (b), ms per launch")
+    record["probes"] = probe_rows(other, this, event_ms)
     print(card)
     print(json.dumps(record))
     return 0

@@ -9,8 +9,11 @@ raises, so the exit code is not 0 and no result line is printed:
 
   1. card and tools: the device, its power limit, torch, CUDA, nvcc;
   2. build: every library of ops/csrc/ with nvcc, in parallel, timed, and
-     the registers and spills of each kernel instantiation (no megakernel
-     instantiation may spill, those that read a pixel list included); then the warm-up path (K2):
+     the registers, spills and SASS size of each kernel instantiation (no
+     megakernel instantiation may spill, those that read a pixel list
+     included, nor any probe kernel; the probes library must be built with
+     -fmad=false); the SASS instructions a ray spends on a sphere in K5
+     and K6 and their launch shapes; then the warm-up path (K2):
      warm_kernels() loads every library and megakernel instantiation and
      launches the zero fill, whose output must equal torch.zeros, with
      the seconds of the load and of the first launch; and the first and
@@ -27,8 +30,10 @@ raises, so the exit code is not 0 and no result line is printed:
      and cornell_panel; the table kernel against its plain version;
      doubling every emission doubles K3's nee image; neither that edit
      nor a moved sphere builds or loads a library again; the zero fill
-     (K2) and the probe kernels (K4 in float32 and bfloat16, K5, K6) at
-     their JAX shapes against their plain versions;
+     (K2) and the probe kernels (K4 in float32 and bfloat16, K5 at 512
+     and 8 spheres, K6) at their JAX shapes against their plain versions,
+     K5 and K6 also on the special lanes (NaN, infinities, zeros, huge
+     origins, origins inside a sphere, grazing rays);
   4. the slices, each with the launch counts zeroed just before it and
      read just after: RenderSession(cornell_box(), RenderOptions(...))
      at 512x512, 256 spp, max_depth 64 with the PNG written, for the
@@ -47,7 +52,8 @@ raises, so the exit code is not 0 and no result line is printed:
      SDF_STRIDE-th ray of it, traced as its (pixel, sample), as 128-step
      marches in torch ops over 8.4M rays take long); the two outputs, and
      those of the last chunk (offset 224), held to the phase-3 bar ray by
-     ray; the probes at their JAX shapes and the zero fill against
+     ray; the probes at their JAX shapes (K5 and K6 beside the floor their
+     SASS instructions set at the SM clock nvidia-smi reads) and the zero fill against
      torch.zeros (CUDA events, with torch.empty's time beside them: the
      allocation both pay); then the pinned NEE firefly of
      tests/test_nee.py on the kernel, clamp off and on (printed only);
@@ -225,6 +231,10 @@ OPS = {
 # type (x c + d, x x - 2c x + k, b b - cc, the sum) and 3 in float32
 # (compare, max, sqrt), plus 2 conversions in bfloat16.
 SCAN_OPS = {BAKED: 23, DYNAMIC: 24}
+# The scheduler count of an H100 SM: each issues one warp instruction a
+# clock, which with the SASS instructions a ray spends on a sphere sets
+# K5's and K6's issue floor.
+SCHEDULERS_PER_SM = 4
 QUAD_OPS = {"float32": dict(fp32=12), "bfloat16": dict(bf16=9, fp32=5)}
 
 
@@ -352,25 +362,64 @@ def golden_regions(png_path: str):
     return worst, [float(b) for b in bias], int(clean.sum())
 
 
-def sass_counts(libraries: dict) -> dict:
-    """{kernel name: SASS instructions} by cuobjdump, where the toolkit has
-    it; {} otherwise."""
+def sass_listings(libraries: dict) -> dict:
+    """{kernel name: [(address, SASS instruction)]} by cuobjdump, where the
+    toolkit has it; {} otherwise."""
     from cornelis_tpu_torch.ops.build import _nvcc
 
     tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         return {}
-    counts, current = {}, None
+    listings, current = {}, None
     for so, _seconds in libraries.values():
         out = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True).stdout
         for line in out.splitlines():
             fn = re.search(r"Function : (\S+)", line)
+            ins = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;?\s*/\*", line)
             if fn:
                 current = instantiation_name(fn.group(1))
-                counts[current] = 0
-            elif current and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
-                counts[current] += 1
-    return counts
+                listings[current] = []
+            elif current and ins:
+                listings[current].append((int(ins.group(1), 16), ins.group(2)))
+    return listings
+
+
+def innermost_loop(listing) -> int:
+    """SASS instructions in the largest innermost loop of a listing: the
+    widest span from a backward branch's target to the branch that holds
+    no other backward branch's span."""
+    loops = []
+    for addr, text in listing:
+        target = re.search(r"BRA(?:\.\S+)* (0x[0-9a-f]+)", text)
+        if target and int(target.group(1), 16) < addr:
+            loops.append((int(target.group(1), 16), addr))
+    inner = [(a, b) for a, b in loops
+             if not any(a <= c and d <= b and (c, d) != (a, b) for c, d in loops)]
+    return max((sum(a <= addr <= b for addr, _ in listing) for a, b in inner), default=0)
+
+
+def sass_per_sphere(listings: dict, shapes: dict) -> dict:
+    """SASS instructions a ray spends on a sphere, in K5 (the 512-sphere
+    instantiation less the 8-sphere one, over 504 spheres and its rays a
+    thread) and K6 (its sphere loop's body over the spheres and rays of
+    one pass)."""
+    out = {}
+    k5 = (f"{BAKED} 512", f"{BAKED} 8")
+    if all(name in listings for name in k5):
+        extra = len(listings[k5[0]]) - len(listings[k5[1]])
+        out[BAKED] = extra / 504 / shapes[BAKED]["rays_per_thread"]
+    if DYNAMIC in listings:
+        shape = shapes[DYNAMIC]
+        out[DYNAMIC] = (innermost_loop(listings[DYNAMIC])
+                        / (shape["spheres_per_pass"] * shape["rays_per_thread"]))
+    return out
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock nvidia-smi reads now, in MHz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.split()[0])
 
 
 def counted_work(megakernel, run):
@@ -1709,15 +1758,23 @@ def main() -> int:
     print(f"built {len(built)} libraries in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"{os.path.relpath(so, REPO)} ({s:.1f} s)" for so, s in built.values()))
     ptxas = ptxas_report(build.BUILD_LOGS)
-    sass = sass_counts(built)
+    listings = sass_listings(built)
     for name, (regs, stack, spill) in sorted(ptxas.items()):
         print(f"  {name}: {regs} registers, {stack} B stack, {spill} B spilled"
-              + (f", {sass[name]} SASS instructions" if name in sass else ""))
+              + (f", {len(listings[name])} SASS instructions" if name in listings else ""))
     check(len(ptxas) == 25, f"expected 25 kernel instantiations, ptxas reported {sorted(ptxas)}")
+    check("-fmad=false" in build.EXTRA_FLAGS["probes"], "the probes library lost -fmad=false")
     # Checked at the end, so that a run that fails here still reports the rest.
     spilled = {name: spill for name, (_r, _s, spill) in ptxas.items()
-               if name.startswith(("megakernel", STAGE)) and spill != 0}
-    print(f"megakernel instantiations that spill: {spilled or 'none'}")
+               if name.startswith(("megakernel", STAGE, BAKED, DYNAMIC, "quad_probe")) and spill != 0}
+    print(f"megakernel and probe instantiations that spill: {spilled or 'none'}")
+    scan_shapes = {BAKED: scene_table.launch_shape("baked"),
+                   DYNAMIC: scene_table.launch_shape("dynamic")}
+    per_sphere = sass_per_sphere(listings, scan_shapes)
+    for name, shape in scan_shapes.items():
+        print(f"  {name}: launch {shape} over {scene_table.SHAPE[0] * scene_table.SHAPE[1]} "
+              f"elements; {per_sphere.get(name, 'uncounted (no cuobjdump)')} SASS instructions a ray spends "
+              "on a sphere")
 
     # Every kernel of the report: {name: dict of the kernels line}.
     records = {}
@@ -1741,6 +1798,9 @@ def main() -> int:
     record(ZERO, CSRC + "warm.cu", K2_TPU, ZERO, tol=0.0)
     record(BAKED, CSRC + "probes.cu", K5_TPU, f"{BAKED} {scene_table.DEFAULT_N}", tol=F32_ULP)
     record(DYNAMIC, CSRC + "probes.cu", K6_TPU, DYNAMIC, tol=F32_ULP)
+    for name, shape in scan_shapes.items():
+        records[name].update(sass_per_sphere=per_sphere.get(name), launch={
+            key: shape[key] for key in ("block", "blocks", "rays_per_thread")})
     for dtype, name in QUAD.items():
         record(name, CSRC + "probes.cu", K4_TPU, name,
                tol=F32_ULP if dtype == "float32" else BF16_ULP)
@@ -1911,12 +1971,13 @@ def main() -> int:
         records[name]["fracs"].append(frac)
         records[name]["errs"].append(err)
 
-    o = scene_table.probe_input("cuda")
-    tab = scene_table.table(scene_table.DEFAULT_N, "cuda")
-    hold_probe(BAKED, scene_table.scan_baked(o, scene_table.DEFAULT_N),
-               scene_table.scan_baked_reference(o, scene_table.DEFAULT_N), F32_ULP)
-    hold_probe(DYNAMIC, scene_table.scan_dynamic(o, tab),
-               scene_table.scan_dynamic_reference(o, tab), F32_ULP)
+    for o in (scene_table.probe_input("cuda"), scene_table.special_input("cuda")):
+        for n_obj in scene_table.BAKED_COUNTS:
+            tab = scene_table.table(n_obj, "cuda")
+            hold_probe(BAKED, scene_table.scan_baked(o, n_obj),
+                       scene_table.scan_baked_reference(o, n_obj), F32_ULP)
+            hold_probe(DYNAMIC, scene_table.scan_dynamic(o, tab),
+                       scene_table.scan_dynamic_reference(o, tab), F32_ULP)
     for dtype, name in QUAD.items():
         x = bf16_probe.probe_input(getattr(torch, dtype), "cuda")
         hold_probe(name, bf16_probe.quad_probe(x), bf16_probe.quad_reference(x),
@@ -2152,6 +2213,19 @@ def main() -> int:
         print(f"{name}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.2f} ms, bound "
               f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}) on {card}")
 
+    # K5's and K6's issue floor: the warp instructions their rays spend on
+    # the spheres, over the card's schedulers at the SM clock read after
+    # the timing (under -fmad=false no product and sum share an FMA).
+    def issue_floor(name, lane_spheres):
+        per = records[name]["sass_per_sphere"]
+        if per is None:  # no cuobjdump
+            return
+        mhz = sm_clock_mhz()
+        schedulers = torch.cuda.get_device_properties(0).multi_processor_count * SCHEDULERS_PER_SM
+        records[name]["issue_floor_ms"] = floor = per * lane_spheres / 32 / schedulers / (mhz * 1e3)
+        print(f"{name}: issue floor {floor:.4f} ms ({per:.2f} SASS instructions a ray-sphere, "
+              f"{schedulers} schedulers at {mhz:.0f} MHz) on {card}")
+
     n_obj = scene_table.DEFAULT_N
     o = scene_table.probe_input("cuda")
     tab = scene_table.table(n_obj, "cuda")
@@ -2161,6 +2235,8 @@ def main() -> int:
     time_probe(DYNAMIC, lambda: scene_table.scan_dynamic(o, tab),
                lambda: scene_table.scan_dynamic_reference(o, tab), 8 * o.numel() + 16 * n_obj,
                fp32=SCAN_OPS[DYNAMIC] * o.numel() * n_obj)
+    for name in (BAKED, DYNAMIC):
+        issue_floor(name, o.numel() * n_obj)
     for dtype, name in QUAD.items():
         x = bf16_probe.probe_input(getattr(torch, dtype), "cuda")
         time_probe(name, lambda: bf16_probe.quad_probe(x), lambda: bf16_probe.quad_reference(x),
@@ -2202,7 +2278,7 @@ def main() -> int:
     session_record = session_phase(card)
     phase_done()
 
-    check(not spilled, f"megakernel instantiations spill: {spilled}")
+    check(not spilled, f"megakernel or probe instantiations spill: {spilled}")
     kernels = []
     for rec in records.values():
         fracs, errs = rec.pop("fracs"), rec.pop("errs")

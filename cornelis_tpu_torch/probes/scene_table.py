@@ -12,8 +12,17 @@ constants (ops/csrc/probes.cu instantiates n = 8 and 512); K6 reads an
 rounding, as the JAX kernels do: K5 squares r in double before rounding
 to float32 (a Python-float literal), K6 squares the float32 r.
 
+`special_input` sets the first lanes to the cases the scan's tests meet
+at their edges (NaN, infinities, zeros, huge origins, origins inside a
+sphere, grazing rays); `launch_shape` reports how each kernel launches.
+
 The command line times both kernels by CUDA events over chained launches
-and prints their ratio with the card's name and power limit.
+and prints their ratio with the card's name and power limit. On the H100
+(PERF.md §6) the ratio says what reading the spheres from a table costs
+against literals the compiler can fold: with the table staged in shared
+memory and read once for two rays, the read itself is nearly free, and
+the baked scan is faster only by the terms the compiler shares between
+spheres with a coordinate in common.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import functools
 import math
 import sys
 
+import numpy as np
 import torch
 
 from ..ops.build import launch, load_library
@@ -31,6 +41,7 @@ from . import linspace_f32
 SHAPE = (1024, 128)  # ROWS * PASSES x LANES of the JAX probe
 DEFAULT_N = 512
 BAKED_COUNTS = (8, 512)  # the baked instantiations of csrc/probes.cu
+STAGE_TILE = 512  # spheres of one K6 tile staged in shared memory (csrc/probes.cu TILE)
 D = (0.27, 0.53, 0.80)
 REPEAT = 32
 
@@ -59,6 +70,54 @@ def table(n: int, device="cpu") -> torch.Tensor:
 def probe_input(device="cpu") -> torch.Tensor:
     """The JAX probe's input: jnp.linspace(0, 24) in float32."""
     return linspace_f32(24.0, SHAPE[0] * SHAPE[1], device).reshape(SHAPE)
+
+
+# Special origins beside the inside and grazing ones: NaN, infinities,
+# signed zeros, subnormals, the smallest normal, and origins so large that
+# b * b or the sum of squares overflows (disc is then inf - inf, NaN).
+EXTREMES = (math.nan, math.inf, -math.inf, 0.0, -0.0, 1e-45, -1e-45, 1.1754944e-38, 1e-30,
+            1e19, -1e19, 1e30, -1e30, 3.4028235e38, -3.4028235e38)
+GRAZE_ULPS = 4
+
+
+def special_lanes(n: int = DEFAULT_N) -> dict:
+    """float32 origins ox on which the scan's tests meet their edge cases,
+    by kind: "extreme", EXTREMES; "inside", the origin nearest the centre
+    of each of the n spheres that the line of origins passes through
+    (c < 0); "grazing", for each sphere that some ray touches, the two
+    origins whose ray is tangent to it (disc = 0, a quadratic in ox solved
+    in float64) and GRAZE_ULPS float32 steps on either side of each."""
+    u, d = np.array([1.0, 0.5, 0.25]), np.array(D)
+    inside, grazing = [], []
+    for cx, cy, cz, r in consts(n):
+        p = np.array([cx, cy, cz])
+        nearest = (u @ p) / (u @ u)
+        if np.linalg.norm(nearest * u - p) < r:
+            inside.append(nearest)
+        # disc(x) = (x u.d - p.d)^2 - |x u - p|^2 + r^2 = a x^2 + b x + c
+        a = (u @ d) ** 2 - u @ u
+        b = 2.0 * (u @ p - (u @ d) * (p @ d))
+        c = (p @ d) ** 2 - p @ p + r * r
+        if b * b - 4.0 * a * c < 0.0:
+            continue
+        for sign in (1.0, -1.0):
+            root = np.float32((-b + sign * math.sqrt(b * b - 4.0 * a * c)) / (2.0 * a))
+            grazing.append(root)
+            up = down = root
+            for _ in range(GRAZE_ULPS):
+                up, down = np.nextafter(up, np.float32(np.inf)), np.nextafter(down, np.float32(-np.inf))
+                grazing += [up, down]
+    return {kind: np.asarray(lanes, np.float32)
+            for kind, lanes in (("extreme", EXTREMES), ("inside", inside), ("grazing", grazing))}
+
+
+def special_input(device="cpu") -> torch.Tensor:
+    """The probe input with its first lanes set to `special_lanes()`, kind
+    after kind in its order."""
+    o = probe_input()
+    lanes = torch.from_numpy(np.concatenate(list(special_lanes().values())))
+    o.view(-1)[: lanes.numel()] = lanes
+    return o.to(device)
 
 
 def _scan_body(ox, oy, oz, cx, cy, cz, rr, best):
@@ -100,11 +159,24 @@ def scan_dynamic_reference(o: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
 def _fns():
     lib = load_library("probes")
     p, i = ctypes.c_void_p, ctypes.c_int
-    baked, dynamic = lib.cornelis_scan_baked, lib.cornelis_scan_dynamic
+    baked, dynamic, shape = lib.cornelis_scan_baked, lib.cornelis_scan_dynamic, lib.cornelis_scan_shape
     baked.argtypes = [i, p, p, i, p]  # n_obj, o, out, n, stream
     dynamic.argtypes = [p, i, p, p, i, p]  # table, n_obj, o, out, n, stream
-    baked.restype = dynamic.restype = ctypes.c_int
-    return baked, dynamic
+    shape.argtypes = [i, i, i, p]  # dynamic, n_obj, n, int[4]
+    baked.restype = dynamic.restype = shape.restype = ctypes.c_int
+    return baked, dynamic, shape
+
+
+def launch_shape(kind: str, n_obj: int = DEFAULT_N, n: int = SHAPE[0] * SHAPE[1]) -> dict:
+    """How K5 ("baked", n_obj spheres) or K6 ("dynamic") launches over n
+    elements on the current CUDA device: threads a block, blocks (one wave,
+    or fewer where the elements need fewer), rays a thread, and spheres a
+    pass of its sphere loop."""
+    shape = (ctypes.c_int * 4)()
+    err = _fns()[2](int(kind == "dynamic"), n_obj, n, shape)
+    if err != 0:
+        raise RuntimeError(f"cornelis_scan_shape failed with CUDA error {err}")
+    return dict(zip(("block", "blocks", "rays_per_thread", "spheres_per_pass"), shape))
 
 
 def _check(o: torch.Tensor) -> None:

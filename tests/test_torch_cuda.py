@@ -19,7 +19,10 @@ whose tables cross the kernel's shared-memory cap. The kernel's blocks take
 rays in no fixed order: every ray is written, and two launches give the
 same bits. The zero fill must equal torch.zeros; the
 probes their plain versions, float32 within 1 ulp (they round every
-operation as the plain versions do) and bfloat16 within 1 bfloat16 ulp.
+operation as the plain versions do) and bfloat16 within 1 bfloat16 ulp;
+the scan probes on the special lanes too, K6 at every table length
+through both its staging paths (bulk copy, and the threads' own copy of
+a table that is not 16-byte aligned), and both at ragged element counts.
 
 The differentiable mode (torch ops, no kernel of its own) on the card
 against the same code on the CPU: render_diff on Cornell at 16x16, 8 spp,
@@ -338,6 +341,56 @@ def test_cuda_scan_probes_match_plain_versions(cuda, n_obj):
                                rtol=2.0 ** -23, atol=0.0)
     with pytest.raises(ValueError):
         scene_table.scan_baked(o, n_obj + 1)
+
+
+@pytest.mark.parametrize("n_obj", scene_table.BAKED_COUNTS)
+def test_cuda_scan_probes_match_plain_versions_on_special_lanes(cuda, n_obj):
+    o = scene_table.special_input("cuda")
+    tab = scene_table.table(n_obj, "cuda")
+    baked, dynamic = scene_table.scan_baked(o, n_obj), scene_table.scan_dynamic(o, tab)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(baked, scene_table.scan_baked_reference(o, n_obj),
+                               rtol=2.0 ** -23, atol=0.0)
+    torch.testing.assert_close(dynamic, scene_table.scan_dynamic_reference(o, tab),
+                               rtol=2.0 ** -23, atol=0.0)
+
+
+# Table lengths: none, fewer than the sphere loop's unrolling, a remainder
+# past it, the default table (one staged tile), one sphere past the tile
+# and past two tiles (the double buffer reused).
+@pytest.mark.parametrize("n_obj", [0, 1, 3, 13, 512, scene_table.STAGE_TILE + 1,
+                                   2 * scene_table.STAGE_TILE + 76])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cuda_scan_dynamic_table_lengths(cuda, n_obj, aligned):
+    o = scene_table.special_input("cuda")
+    tab = scene_table.table(n_obj, "cuda")
+    if not aligned:  # a contiguous view 4 bytes into a flat tensor: no bulk copy
+        flat = torch.empty(4 * n_obj + 1, device="cuda")
+        flat[1:] = tab.reshape(-1)
+        tab = flat[1:].view(n_obj, 4)
+        assert n_obj == 0 or tab.data_ptr() % 16 == 4
+    got = scene_table.scan_dynamic(o, tab)
+    torch.cuda.synchronize()
+    want = scene_table.scan_dynamic_reference(o, tab)
+    torch.testing.assert_close(got, want, rtol=2.0 ** -23, atol=0.0)
+    if n_obj == 0:
+        assert bool(torch.isinf(got).all())
+
+
+@pytest.mark.parametrize("n", [1, 127, 131071])
+def test_cuda_scan_probes_ragged_element_counts(cuda, n):
+    o = scene_table.special_input("cuda").view(-1)[1:n + 1].clone()  # from the +inf lane on
+    tab = scene_table.table(scene_table.DEFAULT_N, "cuda")
+    for n_obj in scene_table.BAKED_COUNTS:
+        torch.testing.assert_close(scene_table.scan_baked(o, n_obj),
+                                   scene_table.scan_baked_reference(o, n_obj),
+                                   rtol=2.0 ** -23, atol=0.0)
+    torch.testing.assert_close(scene_table.scan_dynamic(o, tab),
+                               scene_table.scan_dynamic_reference(o, tab), rtol=2.0 ** -23, atol=0.0)
+    for kind in ("baked", "dynamic"):
+        shape = scene_table.launch_shape(kind, scene_table.DEFAULT_N, n)
+        per_block = shape["block"] * shape["rays_per_thread"]
+        assert 1 <= shape["blocks"] <= -(-n // per_block)
 
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 2.0 ** -23), (torch.bfloat16, 2.0 ** -8)])

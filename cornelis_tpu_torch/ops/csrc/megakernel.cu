@@ -5,14 +5,16 @@
 // Replaces cornelis_tpu/ops/pallas_integrator.py::_make_kernel (launched
 // there by _build_renderer through pl.pallas_call) on spheres, planes and
 // SDF primitives, in modes "path" and "nee" with samplers "uniform" and
-// "sobol", and the bounce loop of
-// cornelis_tpu/ops/pallas_dynamic.py::_make_kernel_dyn, which differs only
-// in its light table (ops/lights.py builds both). Mode, sampler and SDF
-// support are template parameters; the SDF instantiations are launched only
-// for tables with SDF rows. This file instantiates mode "path" (entry point
-// cornelis_megakernel); megakernel_nee.cu includes it with
-// CORNELIS_MEGAKERNEL_NEE defined and instantiates mode "nee"
-// (cornelis_megakernel_nee), compiled without FMA contraction
+// "sobol", and cornelis_tpu/ops/pallas_dynamic.py::_make_kernel_dyn, whose
+// bounce loop is the same and whose light table its nee instantiations
+// (megakernel_dyn) build in their prologue, from the tables each block has
+// staged, as the TPU kernel built it in every grid step (light_table.cuh).
+// Mode, sampler and SDF support are template parameters; the SDF
+// instantiations are launched only for tables with SDF rows. This file
+// instantiates mode "path" (entry point cornelis_megakernel);
+// megakernel_nee.cu includes it with CORNELIS_MEGAKERNEL_NEE defined and
+// instantiates mode "nee" (cornelis_megakernel_nee, and
+// cornelis_megakernel_nee_dynamic), compiled without FMA contraction
 // (ops/build.py). Why: in the reference scenes a camera ray meets a sphere
 // about 1000 units away, and the quadratic's cancellation leaves the hit
 // point up to ~1e-3 off the surface, more than the min_hit_t guard. A point
@@ -99,6 +101,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
+
+#include "light_table.cuh"
 
 // The block's dynamic shared memory: the scene's tables, staged once per
 // block in the layout of `layout`.
@@ -305,11 +311,13 @@ __device__ __forceinline__ float light(const Launch& L, int row, int col) {
 // Writes the expanded layout of the tables to `dst`, thread `tid` of
 // `threads` taking its share: the header, plane rows with their
 // construct_basis tangents, SDF rows with 1/scale, materials, lights, and
-// the spheres as float4 (c, r) rows and then their materials.
-template <bool NEE>
+// the spheres as float4 (c, r) rows and then their materials. DYN: the
+// launch builds K3's light table and clamp base itself (light_table.cuh),
+// so neither is copied.
+template <bool NEE, bool DYN>
 __device__ __forceinline__ void expand(float* dst, const Launch& L, int tid, int threads) {
   if (tid < 12) dst[tid] = __ldg(L.camera + tid);
-  if (tid == 12) dst[12] = (NEE && L.lights.n > 0) ? __ldg(L.clamp) : 0.0f;
+  if (tid == 12 && !DYN) dst[12] = (NEE && L.lights.n > 0) ? __ldg(L.clamp) : 0.0f;
   for (int j = tid; j < L.planes.n; j += threads) {
     const float* r = L.planes.rows + PLANE_COLS * j;
     const V3 n = v3(__ldg(r), __ldg(r + 1), __ldg(r + 2));
@@ -328,8 +336,9 @@ __device__ __forceinline__ void expand(float* dst, const Launch& L, int tid, int
   }
   for (int i = tid; i < MATERIAL_COLS * L.materials.n; i += threads)
     dst[L.materials.at + i] = __ldg(L.materials.rows + i);
-  for (int i = tid; i < LIGHT_COLS * L.lights.n; i += threads)
-    dst[L.lights.at + i] = __ldg(L.lights.rows + i);
+  if (!DYN)
+    for (int i = tid; i < LIGHT_COLS * L.lights.n; i += threads)
+      dst[L.lights.at + i] = __ldg(L.lights.rows + i);
   for (int s = tid; s < L.spheres.n; s += threads) {
     const float* r = L.spheres.rows + SPHERE_COLS * s;
     reinterpret_cast<float4*>(dst + L.spheres.at)[s] =
@@ -338,11 +347,51 @@ __device__ __forceinline__ void expand(float* dst, const Launch& L, int tid, int
   }
 }
 
+// The tables as expand staged them, read by light_table::build (the
+// interface of light_table::Rows).
+struct StagedScene {
+  const Launch& L;
+  int n_spheres, n_planes, n_materials;
+
+  __device__ __forceinline__ explicit StagedScene(const Launch& staged)
+      : L(staged), n_spheres(staged.spheres.n), n_planes(staged.planes.n),
+        n_materials(staged.materials.n) {}
+  __device__ __forceinline__ float4 sphere(int i) const { return sphere_cr(L, i); }
+  __device__ __forceinline__ float sphere_material(int i) const {
+    return tables(L)[L.spheres.at + 4 * L.spheres.n + i];
+  }
+  __device__ __forceinline__ void plane(int j, float g[8]) const {
+    const float* q = tables(L) + L.planes.at + PLANE_ROW * j;
+    const float4 a = ld4(q), b = ld4(q + 4);
+    g[0] = a.x, g[1] = a.y, g[2] = a.z, g[3] = b.x, g[4] = b.y, g[5] = b.z, g[6] = a.w, g[7] = b.w;
+  }
+  __device__ __forceinline__ float plane_material(int j) const {
+    return tables(L)[L.planes.at + PLANE_ROW * j + 11];
+  }
+  __device__ __forceinline__ float emission(int m, int c) const {
+    return material(L, MATERIAL_COLS * m + 3 + c);
+  }
+};
+
 // Stages the expanded layout in device memory (L.tables) for a launch whose
-// tables are larger than SMEM_CAP.
+// tables are larger than SMEM_CAP. DYN: block 0 also builds the light
+// table and clamp base there, from the tables' own rows, while the other
+// blocks expand the rest; the megakernel that follows on the stream reads
+// them.
+template <bool NEE, bool DYN>
+__device__ __forceinline__ void stage(const Launch& L) {
+  float* dst = const_cast<float*>(L.tables);
+  expand<NEE, DYN>(dst, L, blockIdx.x * BLOCK + threadIdx.x, gridDim.x * BLOCK);
+  if (DYN && blockIdx.x == 0) {
+    const light_table::Rows scene{L.spheres.rows, L.spheres.n,   L.planes.rows,
+                                  L.planes.n,     L.materials.rows, L.materials.n};
+    light_table::build(scene, dst + L.lights.at, dst + 12, threadIdx.x, BLOCK);
+  }
+}
+
 template <bool NEE>
 __global__ void __launch_bounds__(BLOCK) stage_tables(const __grid_constant__ Launch L) {
-  expand<NEE>(const_cast<float*>(L.tables), L, blockIdx.x * BLOCK + threadIdx.x, gridDim.x * BLOCK);
+  stage<NEE, false>(L);
 }
 
 // ---- the block's share of the launch's rays ---------------------------------
@@ -1136,16 +1185,25 @@ __device__ __forceinline__ bool bounce(const Launch& L, Path& P, float clamp_bas
 }
 
 // NEE: mode "nee" (else "path"); SOBOL: sampler "sobol" (else "uniform");
-// SDF: scan the SDF rows (else they are not read). The lights and the clamp
-// base are read in mode "nee" only; no light rows means nothing emits: no
-// light is sampled, and emission is neither MIS-weighted nor clamped.
+// SDF: scan the SDF rows (else they are not read); DYN: build K3's light
+// table and clamp base from the staged tables (mode "nee", no SDF rows, no
+// pixel list). The lights and the clamp base are read in mode "nee" only;
+// no light rows means nothing emits: no light is sampled, and emission is
+// neither MIS-weighted nor clamped.
 //
 // Persistent: each block stages the tables, then its lanes take rays from
 // the block's range until the launch's rays are all taken. A lane whose
 // path ends writes its radiance and takes a new ray at the next iteration.
-template <bool NEE, bool SOBOL, bool SDF, bool IDS>
-__global__ void __launch_bounds__(BLOCK, MinBlocks<NEE, SOBOL, SDF, IDS>::value) megakernel(const __grid_constant__ Launch L) {
-  if (L.tables == nullptr) expand<NEE>(cornelis_smem, L, threadIdx.x, BLOCK);
+template <bool NEE, bool SOBOL, bool SDF, bool IDS, bool DYN>
+__device__ __forceinline__ void trace(const Launch& L) {
+  if (L.tables == nullptr) {
+    expand<NEE, DYN>(cornelis_smem, L, threadIdx.x, BLOCK);
+    if (DYN) {
+      __syncthreads();
+      light_table::build(StagedScene(L), cornelis_smem + L.lights.at, cornelis_smem + 12,
+                         threadIdx.x, BLOCK);
+    }
+  }
   if (threadIdx.x == 0) {
     unsigned kept;
     block_done = 0;
@@ -1187,6 +1245,44 @@ __global__ void __launch_bounds__(BLOCK, MinBlocks<NEE, SOBOL, SDF, IDS>::value)
   }
 }
 
+template <bool NEE, bool SOBOL, bool SDF, bool IDS>
+__global__ void __launch_bounds__(BLOCK, MinBlocks<NEE, SOBOL, SDF, IDS>::value) megakernel(const __grid_constant__ Launch L) {
+  trace<NEE, SOBOL, SDF, IDS, false>(L);
+}
+
+#ifdef CORNELIS_MEGAKERNEL_NEE
+
+// The dynamic-scene render's instantiations (nee, no SDF rows, no pixel
+// list), which build K3's light table in the prologue: the launch bounds
+// of K1's nee ones. Only this library holds them, so K1's eight
+// instantiations of each library compile as they did without them.
+template <bool SOBOL>
+__global__ void __launch_bounds__(BLOCK, MinBlocks<true, SOBOL, false, false>::value) megakernel_dyn(const __grid_constant__ Launch L) {
+  trace<true, SOBOL, false, false, true>(L);
+}
+
+__global__ void __launch_bounds__(BLOCK) stage_tables_dyn(const __grid_constant__ Launch L) {
+  stage<true, true>(L);
+}
+
+#endif
+
+// The kernels of a launch: the megakernel instantiation and the staging
+// kernel for tables past SMEM_CAP.
+template <bool NEE, bool SOBOL, bool SDF, bool IDS, bool DYN>
+struct Kernels {
+  static constexpr auto main_fn = megakernel<NEE, SOBOL, SDF, IDS>;
+  static constexpr auto stage_fn = stage_tables<NEE>;
+};
+
+#ifdef CORNELIS_MEGAKERNEL_NEE
+template <bool SOBOL>
+struct Kernels<true, SOBOL, false, false, true> {
+  static constexpr auto main_fn = megakernel_dyn<SOBOL>;
+  static constexpr auto stage_fn = stage_tables_dyn;
+};
+#endif
+
 // Lays the tables out: the header, then planes, SDFs, materials, lights and
 // spheres, each at a 16-byte boundary. Returns the layout's bytes.
 int layout(Launch& L) {
@@ -1207,9 +1303,10 @@ int layout(Launch& L) {
 // (SMs x the blocks an SM holds, or fewer for a small launch) on `stream`,
 // with the tables in each block's shared memory, or, past SMEM_CAP, staged
 // once in device memory allocated and freed on `stream`.
-template <bool NEE, bool SOBOL, bool SDF, bool IDS>
+template <bool NEE, bool SOBOL, bool SDF, bool IDS, bool DYN = false>
 int launch(Launch L, cudaStream_t stream) {
-  const auto kernel = megakernel<NEE, SOBOL, SDF, IDS>;  // for the attribute and occupancy calls
+  const auto kernel = Kernels<NEE, SOBOL, SDF, IDS, DYN>::main_fn;
+  const auto stage_kernel = Kernels<NEE, SOBOL, SDF, IDS, DYN>::stage_fn;
   const int bytes = layout(L);
   const int smem = bytes <= SMEM_CAP ? bytes : 0;
   cudaError_t err = cudaSuccess;
@@ -1230,14 +1327,14 @@ int launch(Launch L, cudaStream_t stream) {
       int items = L.spheres.n > L.planes.n + L.sdfs.n ? L.spheres.n : L.planes.n + L.sdfs.n;
       items = items > MATERIAL_COLS * L.materials.n ? items : MATERIAL_COLS * L.materials.n;
       items = items > LIGHT_COLS * L.lights.n ? items : LIGHT_COLS * L.lights.n;
-      stage_tables<NEE><<<(items + BLOCK - 1) / BLOCK + 1, BLOCK, 0, stream>>>(L);
+      stage_kernel<<<(items + BLOCK - 1) / BLOCK + 1, BLOCK, 0, stream>>>(L);
       err = cudaGetLastError();
     }
   }
   if (err == cudaSuccess) {
     const unsigned wave = (unsigned)(sms * per_sm);
     const unsigned needed = (L.n_rays + CHUNK - 1) / CHUNK;
-    megakernel<NEE, SOBOL, SDF, IDS><<<needed < wave ? needed : wave, BLOCK, smem, stream>>>(L);
+    kernel<<<needed < wave ? needed : wave, BLOCK, smem, stream>>>(L);
     err = cudaGetLastError();
   }
   if (staged != nullptr) {
@@ -1261,24 +1358,27 @@ int pick(Launch L, int sobol, cudaStream_t stream) {
                                 : pick_sampler<NEE, false>(L, sobol, stream);
 }
 
-// Every kernel of this library, for cornelis_megakernel*_load.
-template <bool NEE>
-int load_all() {
-  const void* fns[9] = {(const void*)megakernel<NEE, false, false, false>,
-                        (const void*)megakernel<NEE, true, false, false>,
-                        (const void*)megakernel<NEE, false, true, false>,
-                        (const void*)megakernel<NEE, true, true, false>,
-                        (const void*)megakernel<NEE, false, false, true>,
-                        (const void*)megakernel<NEE, true, false, true>,
-                        (const void*)megakernel<NEE, false, true, true>,
-                        (const void*)megakernel<NEE, true, true, true>,
-                        (const void*)stage_tables<NEE>};
+// Loads `fns` onto the current device; the first error.
+int load(std::initializer_list<const void*> fns) {
   for (const void* fn : fns) {
     cudaFuncAttributes attr;
     const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// K1's kernels of mode NEE, for cornelis_megakernel*_load.
+template <bool NEE>
+int load_all() {
+  return load({(const void*)megakernel<NEE, false, false, false>,
+               (const void*)megakernel<NEE, true, false, false>,
+               (const void*)megakernel<NEE, false, true, false>,
+               (const void*)megakernel<NEE, true, true, false>,
+               (const void*)megakernel<NEE, false, false, true>,
+               (const void*)megakernel<NEE, true, false, true>,
+               (const void*)megakernel<NEE, false, true, true>,
+               (const void*)megakernel<NEE, true, true, true>, (const void*)stage_tables<NEE>});
 }
 
 // The launch's arguments, checked: n_rays in [0, 2^31) (ray indices are 32
@@ -1373,6 +1473,34 @@ extern "C" int cornelis_megakernel_nee(const float* camera, const float* spheres
   return pick<true>(L, sobol, (cudaStream_t)stream);
 }
 
-extern "C" int cornelis_megakernel_nee_load() { return load_all<true>(); }
+// The same in mode "nee" with K3's light table and clamp base built inside
+// the launch from the tables (every sphere and plane a row of
+// ops/lights.py's layout): the dynamic-scene render. Takes no SDF rows and
+// no pixel list (cudaErrorInvalidValue), and at least one sphere or plane.
+extern "C" int cornelis_megakernel_nee_dynamic(
+    const float* camera, const float* spheres, int n_spheres, const float* planes, int n_planes,
+    const float* materials, int n_materials, const float* sdfs, int n_sdfs, float* out,
+    unsigned* counter, long long n_rays, uint32_t k0, uint32_t k1, uint32_t root, int width,
+    float inv_width, float inv_height, int spp_chunk, uint32_t sample_offset,
+    const uint32_t* pixel_ids, int max_depth, int sobol, int index_bits, void* stream) {
+  if (n_sdfs != 0 || pixel_ids != nullptr || n_spheres + n_planes < 1)
+    return (int)cudaErrorInvalidValue;
+  Launch L;
+  const int err = make_launch(L, camera, spheres, n_spheres, planes, n_planes, materials,
+                              n_materials, sdfs, 0, out, counter, n_rays, k0, k1, root, width,
+                              inv_width, inv_height, spp_chunk, sample_offset, nullptr, max_depth,
+                              index_bits, nullptr, n_spheres + n_planes, nullptr);
+  if (err != 0 || n_rays == 0) return err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return sobol ? launch<true, true, false, false, true>(L, s)
+               : launch<true, false, false, false, true>(L, s);
+}
+
+extern "C" int cornelis_megakernel_nee_load() {
+  const int err = load_all<true>();
+  if (err != 0) return err;
+  return load({(const void*)megakernel_dyn<false>, (const void*)megakernel_dyn<true>,
+               (const void*)stage_tables_dyn});
+}
 
 #endif

@@ -14,9 +14,12 @@ table is built, and each construction copies its JAX counterpart as it stands:
   * `light_table_dyn` (K3) runs on the tables' device in float32: every
     sphere and every plane is a row, zero-power rows kept, emission picked
     by a masked sum over the materials, and the clamp base computed from
-    the material table too. On a CUDA device it launches a one-thread
-    kernel (ops/csrc/lights.cu) that writes the table into a device buffer,
-    so a scene edit neither syncs nor rebuilds anything.
+    the material table too. On a CUDA device it launches a one-block
+    kernel (ops/csrc/lights.cu) that writes the table into device buffers.
+    The dynamic-scene render does not call it there: its megakernel launch
+    builds the same table in every block with the same device code
+    (ops/csrc/light_table.cuh), so a scene edit neither syncs, rebuilds
+    nor launches anything more.
 
 Row layout (LIGHT_COLS float32 values): prob, cum, kind (0 sphere, 1
 plane), prim (the unified index of `megakernel.intersect`: sphere i -> i,
@@ -101,49 +104,46 @@ def light_table(tables: SceneTables, nee_clamp: Optional[float] = None) -> Light
 
 def light_table_dyn_reference(tables: SceneTables) -> Lights:
     """The plain version of the table kernel: K3's table and clamp base
-    in float32, in the order of `_light_rows_dyn` and `_clamp_base_dyn`."""
+    in float32, each value by the operations of `_light_rows_dyn` and
+    `_clamp_base_dyn` in their order; the rows side by side, the running
+    sums row after row."""
     _check_dyn(tables)
     sph, pln, mat = tables.spheres, tables.planes, tables.materials
-    n_sph = sph.shape[0]
+    n_sph, n_rows = sph.shape[0], sph.shape[0] + pln.shape[0]
     zero = torch.zeros((), dtype=torch.float32, device=mat.device)
+    zeros = torch.zeros(n_rows, dtype=torch.float32, device=mat.device)
 
-    def emission_of(mid):
-        le = [zero, zero, zero]
-        for m in range(mat.shape[0]):
-            mf = (mid == m * 1.0).to(torch.float32)
-            le = [le[c] + mf * mat[m, 3 + c] for c in range(3)]
-        return le
+    # emission_of: the masked sum over the materials, every row at once.
+    mids = torch.cat([sph[:, 4], pln[:, 8]])
+    le = torch.zeros((n_rows, 3), dtype=torch.float32, device=mat.device)
+    for m in range(mat.shape[0]):
+        le = le + (mids == m * 1.0).to(torch.float32)[:, None] * mat[m, 3:6]
+    lum = _luminance(le.unbind(1))
+    rad, w, h = sph[:, 3], pln[:, 6], pln[:, 7]
+    r2 = rad * rad
+    power = torch.cat([lum[:n_sph] * (4.0 * math.pi) * rad * rad, lum[n_sph:] * w * h])
+    geom = torch.cat([torch.cat([sph[:, :4], zeros[:n_sph, None].expand(-1, 4)], 1), pln[:, :8]])
+    pick = torch.cat([torch.stack([r2, r2 * 1.0002, zeros[:n_sph]], 1),
+                      torch.stack([zeros[n_sph:], zeros[n_sph:], torch.clamp_min(w * h, 1e-12)], 1)])
+    kind = torch.cat([zeros[:n_sph], zeros[n_sph:] + 1.0])
+    prim = torch.arange(n_rows, dtype=torch.float32, device=mat.device)
 
-    rows, total = [], zero
-    for i in range(n_sph):
-        cx, cy, cz, rad, mid = sph[i]
-        le = emission_of(mid)
-        power = _luminance(le) * (4.0 * math.pi) * rad * rad
-        r2 = rad * rad
-        geom = [cx, cy, cz, rad, zero, zero, zero, zero]
-        rows.append((power, 0.0, float(i), geom, le, [r2, r2 * 1.0002, zero]))
-        total = total + power
-    for j in range(pln.shape[0]):
-        nx, ny, nz, px, py, pz, w, h, mid = pln[j]
-        le = emission_of(mid)
-        power = _luminance(le) * w * h
-        area = torch.clamp_min(w * h, 1e-12)
-        geom = [nx, ny, nz, px, py, pz, w, h]
-        rows.append((power, 1.0, float(n_sph + j), geom, le, [zero, zero, area]))
-        total = total + power
-    inv_total = 1.0 / torch.clamp_min(total, 1e-30)
-    out, cum = [], zero
-    for power, kind, prim, geom, le, pick in rows:
-        prob = power * inv_total
-        cum = cum + prob
-        out.append(torch.stack([prob, cum, zero + kind, zero + prim, *geom, *le, *pick]))
+    total = zero
+    for r in range(n_rows):
+        total = total + power[r]
+    prob = power * (1.0 / torch.clamp_min(total, 1e-30))
+    cum, running = [], zero
+    for r in range(n_rows):
+        running = running + prob[r]
+        cum.append(running)
+    rows = torch.cat([torch.stack([prob, torch.stack(cum), kind, prim], 1), geom, le, pick], 1)
 
     max_e = zero
     for m in range(mat.shape[0]):
         for c in range(3):
             max_e = torch.maximum(max_e, mat[m, 3 + c])
     clamp = NEE_CLAMP_FACTOR * torch.clamp_min(max_e, 1.0)
-    return Lights(rows=torch.stack(out), clamp=clamp.reshape(1))
+    return Lights(rows=rows, clamp=clamp.reshape(1))
 
 
 def _check_dyn(tables: SceneTables) -> None:
@@ -162,8 +162,8 @@ def _kernel_fn():
 
 
 def light_table_dyn(tables: SceneTables) -> Lights:
-    """K3's table on the tables' device: the table kernel on a CUDA
-    device, the plain version on the CPU. A failed launch raises."""
+    """K3's table on the tables' device: the one-block table kernel on a
+    CUDA device, the plain version on the CPU. A failed launch raises."""
     global LAUNCHES
     from .megakernel import check_tables
 

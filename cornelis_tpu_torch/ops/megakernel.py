@@ -18,7 +18,8 @@ mesh megakernel's `px` and `si` operands. Both versions write one RGB
 radiance per ray into an (n_rays, 3) float32 tensor; `render_chunk` sums
 each pixel's samples outside the kernel.
 Mode "nee" reads a light table (ops/lights.py): K1's, built on the host,
-here; the dynamic-scene kernel's, built on the device, in ops/dynamic.py.
+here; or, with `dynamic_table` (ops/dynamic.py), the dynamic-scene
+kernel's, which the launch builds itself from the tables.
 """
 
 from __future__ import annotations
@@ -42,11 +43,13 @@ from . import lights as L
 from .build import launch, load_library
 from .threefry import pair_uniforms
 
-# Kernel launches made by `render_rays` in this process, and those of them
-# through an SDF instantiation. chip_smoke.py zeroes both before driving a
-# main path and reads them after.
+# Kernel launches made by `render_rays` in this process, those of them
+# through an SDF instantiation, and those through the instantiations that
+# build K3's light table in the launch (`dynamic_table`). chip_smoke.py
+# zeroes them before driving a main path and reads them after.
 LAUNCHES = 0
 SDF_LAUNCHES = 0
+DYNAMIC_TABLE_LAUNCHES = 0
 
 SAMPLERS = ("uniform", "sobol")
 MODES = ("path", "nee")
@@ -296,13 +299,9 @@ def render_rays_reference(
     return torch.stack([rad.x, rad.y, rad.z], dim=1)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_fn(nee: bool):
-    """The C entry point of mode "nee" (libmegakernel_nee) or "path"."""
-    if nee:
-        fn = load_library("megakernel_nee").cornelis_megakernel_nee
-    else:
-        fn = load_library("megakernel").cornelis_megakernel
+def _set_argtypes(fn, lights: bool):
+    """fn, its ctypes argument types set: the light table's three after
+    index_bits where `lights`."""
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     fn.argtypes = [
         p, p, i, p, i, p, i,  # camera, spheres, n_spheres, planes, n_planes, materials, n_materials
@@ -312,11 +311,26 @@ def _kernel_fn(nee: bool):
         i, ctypes.c_float, ctypes.c_float,  # width, inv_width, inv_height
         i, u, p, i,  # spp_chunk, sample_offset, pixel_ids, max_depth
         i, i,  # sobol, index_bits
-        *((p, i, p) if nee else ()),  # lights, n_lights, clamp
+        *((p, i, p) if lights else ()),  # lights, n_lights, clamp
         p,  # stream
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn(nee: bool):
+    """The C entry point of mode "nee" (libmegakernel_nee) or "path"."""
+    if nee:
+        return _set_argtypes(load_library("megakernel_nee").cornelis_megakernel_nee, True)
+    return _set_argtypes(load_library("megakernel").cornelis_megakernel, False)
+
+
+@functools.lru_cache(maxsize=None)
+def _dynamic_table_fn():
+    """The C entry point of mode "nee" that builds K3's light table in the
+    launch (libmegakernel_nee); the arguments of mode "path"'s."""
+    return _set_argtypes(load_library("megakernel_nee").cornelis_megakernel_nee_dynamic, False)
 
 
 def check_tables(tables: SceneTables) -> None:
@@ -332,13 +346,23 @@ def check_tables(tables: SceneTables) -> None:
         raise ValueError("the material table is empty")
 
 
-def _check_variant(sampler: str, mode: str, lights: Optional[L.Lights]) -> None:
+def _check_variant(sampler: str, mode: str, lights: Optional[L.Lights],
+                   dynamic_table: bool = False) -> None:
     if sampler not in SAMPLERS:
         raise ValueError(f"sampler must be one of {SAMPLERS} (not {sampler!r})")
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES} (not {mode!r})")
-    if mode == "nee" and lights is None:
+    if mode == "nee" and lights is None and not dynamic_table:
         raise ValueError("mode 'nee' needs a light table (ops/lights.py)")
+
+
+def _check_dynamic_table(tables: SceneTables, mode: str, lights, pixel_ids) -> None:
+    if mode != "nee" or lights is not None or pixel_ids is not None:
+        raise ValueError("dynamic_table builds mode 'nee''s light table in the launch: it takes "
+                         "no light table and no pixel_ids")
+    if tables.sdfs.shape[0]:
+        raise ValueError("dynamic_table takes no SDF rows")
+    L._check_dyn(tables)
 
 
 def _check_lights(lights: L.Lights, device) -> None:
@@ -357,19 +381,21 @@ def _check_pixel_ids(pixel_ids: torch.Tensor, device) -> None:
 
 
 def _launch_into(out, tables, k0, k1, width, height, spp_chunk, offset, max_depth, *, root,
-                sampler, mode, index_bits, lights, pixel_ids=None) -> None:
+                sampler, mode, index_bits, lights, pixel_ids=None, dynamic_table=False) -> None:
     """Launch the kernel on checked CUDA tables, writing ray k's radiance to
     out[k] ((n_rays, 3) float32 on the tables' device); with checked
     `pixel_ids`, ray k is pixel pixel_ids[k // spp_chunk]'s. The kernel's
     blocks take rays in no fixed order, through a ray counter that this
-    launch allocates and the C entry zeroes on the launch's stream."""
+    launch allocates and the C entry zeroes on the launch's stream. With
+    `dynamic_table` the launch builds K3's light table itself."""
     nee = mode == "nee"
     counter = torch.empty((1,), dtype=torch.int32, device=out.device)
     light_args = (
-        (lights.rows.data_ptr(), lights.rows.shape[0], lights.clamp.data_ptr()) if nee else ()
+        (lights.rows.data_ptr(), lights.rows.shape[0], lights.clamp.data_ptr())
+        if nee and not dynamic_table else ()
     )
     launch(
-        _kernel_fn(nee),
+        _dynamic_table_fn() if dynamic_table else _kernel_fn(nee),
         out.device,
         tables.camera.data_ptr(),
         tables.spheres.data_ptr(),
@@ -415,18 +441,27 @@ def render_rays(
     index_bits: int = 32,
     lights: Optional[L.Lights] = None,
     pixel_ids: Optional[torch.Tensor] = None,
+    dynamic_table: bool = False,
 ) -> torch.Tensor:
     """(n_rays, 3) radiance on the tables' device: the CUDA kernel on a CUDA
     device, the plain version on the CPU. A failed launch raises. Tables
     with SDF rows launch the SDF instantiation (`SDF_LAUNCHES` counts
     those launches too). With `pixel_ids` (contiguous int32 frame pixel
     indices on the tables' device) the launch traces those pixels' rays,
-    len(pixel_ids) x spp_chunk of them, pixel-major."""
-    global LAUNCHES, SDF_LAUNCHES
+    len(pixel_ids) x spp_chunk of them, pixel-major. With `dynamic_table`
+    (mode "nee", no `lights`, no SDF rows, no `pixel_ids`) the light table
+    and clamp base are K3's: on a CUDA device the launch builds them from
+    the tables in every block (`DYNAMIC_TABLE_LAUNCHES` counts those
+    launches too), on the CPU `lights.light_table_dyn_reference` does."""
+    global LAUNCHES, SDF_LAUNCHES, DYNAMIC_TABLE_LAUNCHES
     check_tables(tables)
-    _check_variant(sampler, mode, lights)
     device = tables.camera.device
-    if mode == "nee":
+    if dynamic_table:
+        _check_dynamic_table(tables, mode, lights, pixel_ids)
+        if device.type == "cpu":
+            lights, dynamic_table = L.light_table_dyn_reference(tables), False
+    _check_variant(sampler, mode, lights, dynamic_table)
+    if mode == "nee" and not dynamic_table:
         _check_lights(lights, device)
     if pixel_ids is not None:
         _check_pixel_ids(pixel_ids, device)
@@ -446,9 +481,10 @@ def render_rays(
     out = torch.empty((n_pixels * spp_chunk, 3), dtype=torch.float32, device=device)
     _launch_into(out, tables, k0, k1, width, height, spp_chunk, offset, max_depth, root=root,
                 sampler=sampler, mode=mode, index_bits=index_bits, lights=lights,
-                pixel_ids=pixel_ids)
+                pixel_ids=pixel_ids, dynamic_table=dynamic_table)
     LAUNCHES += 1
     SDF_LAUNCHES += int(tables.sdfs.shape[0] > 0)
+    DYNAMIC_TABLE_LAUNCHES += int(dynamic_table)
     return out
 
 
@@ -466,17 +502,19 @@ def render_chunk(
     mode: str = "path",
     nee_clamp: Optional[float] = None,
     lights: Optional[L.Lights] = None,
+    dynamic_table: bool = False,
 ) -> torch.Tensor:
     """(H, W, 3) radiance sums over one chunk of samples per pixel, through
     `render_rays` (`render_chunk_pallas`). `key` is the key row
     (k0, k1, root) of `rng.key_row`. Mode "nee" builds K1's light table
-    unless `lights` brings one (a session builds it once)."""
+    unless `lights` brings one (a session builds it once) or
+    `dynamic_table` asks for K3's (see `render_rays`)."""
     k0, k1, root = key
-    if mode == "nee" and lights is None:
+    if mode == "nee" and lights is None and not dynamic_table:
         lights = L.light_table(tables, nee_clamp)
     rays = render_rays(
         tables, k0, k1, width, height, spp_chunk, sample_offset, max_depth,
         root=root, sampler=sampler, mode=mode, index_bits=index_bits_for(spp_total),
-        lights=lights,
+        lights=lights, dynamic_table=dynamic_table,
     )
     return rays.view(width * height, spp_chunk, 3).sum(dim=1).view(height, width, 3)

@@ -4,8 +4,8 @@
 dynamic; benchmarks/dynamic_scene_probe.py), `bf16` the f32 against bf16
 arithmetic probe (K4; benchmarks/bf16_probe.py). Each module holds its
 kernels' wrappers, their plain torch versions and a command-line timing.
-`scan_designs` times K5's and K6's other designs against the kernels the
-probe launches.
+`scan_designs` times K4's, K5's and K6's other designs against the
+kernels the probes launch.
 """
 
 import numpy as np

@@ -13,7 +13,10 @@ So at least 99% of rays within rtol = atol = 1e-4 and each channel's mean
 within 1%, the bar of `chip_smoke.py` and of the plain version against
 the Pallas kernel in `tests/test_torch_megakernel.py`. The light-table
 kernel does only float32 products and sums in the plain version's
-order, so it is held to float32 rounding. The SDF instantiations are held
+order, so it is held to it bit for bit, on the edge tables of
+tests/torch_light_tables.py too; the dynamic render's nee launch, which
+builds that table in every block, launches no table kernel and gives
+the rays of K1's nee instantiation fed the plain table, bit for bit. The SDF instantiations are held
 to the same bar on sdf_gallery, and the sphere and plane ones on scenes
 whose tables cross the kernel's shared-memory cap. The kernel's blocks take
 rays in no fixed order: every ray is written, and two launches give the
@@ -22,7 +25,10 @@ probes their plain versions, float32 within 1 ulp (they round every
 operation as the plain versions do) and bfloat16 within 1 bfloat16 ulp;
 the scan probes on the special lanes too, K6 at every table length
 through both its staging paths (bulk copy, and the threads' own copy of
-a table that is not 16-byte aligned), and both at ragged element counts.
+a table that is not 16-byte aligned), and both at ragged element counts;
+K4 bit for bit on its probe and special inputs, and its chain, summing
+disc in place of the root (probes/scan_designs.py's "disc" design, built
+from probes.cu), bit for bit the plain version's.
 
 The differentiable mode (torch ops, no kernel of its own) on the card
 against the same code on the CPU: render_diff on Cornell at 16x16, 8 spp,
@@ -52,6 +58,7 @@ from cornelis_tpu_torch.diff import InverseRenderer, render_diff
 from cornelis_tpu_torch.math.vec import Vec3
 from cornelis_tpu_torch.rng import make_key
 from cornelis_tpu_torch.scene.compile import compile_scene, scene_arrays
+from torch_light_tables import CASE_NAMES, table_case
 
 pytestmark = pytest.mark.cuda
 
@@ -101,16 +108,38 @@ def test_cuda_variant_matches_plain_version(cuda, scene, mode, sampler):
     assert frac >= 0.99 and (mean_rel <= 1e-2).all()
 
 
-@pytest.mark.parametrize("scene", ["cornell_box", "cornell_panel"])
+@pytest.mark.parametrize("scene", CASE_NAMES)
 def test_cuda_light_table_matches_plain_version(cuda, scene):
-    tables = compile_scene(getattr(tlib, scene)(), device="cuda")
+    tables = table_case(scene, "cuda")
     before = lights.LAUNCHES
     got = lights.light_table_dyn(tables)
     torch.cuda.synchronize()
     assert lights.LAUNCHES == before + 1
     want = lights.light_table_dyn_reference(tables)
     for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=2.0 ** -23, atol=0.0)
+        assert g.shape == w.shape
+        assert torch.equal(g.view(torch.int32), w.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("sampler", ["uniform", "sobol"])
+@pytest.mark.parametrize("scene", ["cornell_box", "sphere_grid(512)", "sphere_grid(2200)"])
+def test_cuda_dynamic_nee_builds_its_table_in_the_launch(cuda, scene, sampler):
+    # One launch a chunk and no table launch; the image bit for bit that of
+    # K1's nee instantiation fed light_table_dyn_reference's table.
+    # sphere_grid(2200)'s tables (2202 light rows, ~158 KB) go through the
+    # staging kernel, whose block 0 builds the table.
+    tables = table_case(scene, "cuda")
+    kw = dict(width=24, height=24, spp_chunk=4, spp_total=16, max_depth=64, sampler=sampler,
+              mode="nee")
+    before = (megakernel.LAUNCHES, megakernel.DYNAMIC_TABLE_LAUNCHES, lights.LAUNCHES)
+    got = render_chunk_dynamic(tables, key_row(5), 4, **kw)
+    torch.cuda.synchronize()
+    assert (megakernel.LAUNCHES, megakernel.DYNAMIC_TABLE_LAUNCHES, lights.LAUNCHES) == (
+        before[0] + 1, before[1] + 1, before[2])
+    want = megakernel.render_chunk(tables, key_row(5), 4,
+                                   lights=lights.light_table_dyn_reference(tables), **kw)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert got.sum() > 0
 
 
 @pytest.mark.parametrize("mode", ["path", "nee"])
@@ -393,14 +422,44 @@ def test_cuda_scan_probes_ragged_element_counts(cuda, n):
         assert 1 <= shape["blocks"] <= -(-n // per_block)
 
 
-@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 2.0 ** -23), (torch.bfloat16, 2.0 ** -8)])
-def test_cuda_quad_probe_matches_plain_version(cuda, dtype, rtol):
-    x = bf16_probe.probe_input(dtype, "cuda")
+@pytest.mark.parametrize("data", ["probe", "special"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_quad_probe_matches_plain_version(cuda, dtype, data):
+    make = bf16_probe.probe_input if data == "probe" else bf16_probe.special_input
+    x = make(dtype, "cuda")
     got = bf16_probe.quad_probe(x)
     torch.cuda.synchronize()
     assert got.dtype == dtype
-    torch.testing.assert_close(got.float(), bf16_probe.quad_reference(x).float(), rtol=rtol,
-                               atol=0.0)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), bf16_probe.quad_reference(x).view(bits))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 1001])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_quad_probe_ragged_and_offset_inputs(cuda, dtype, n):
+    # Element counts that leave a pair or a lane half full, and bfloat16
+    # data that starts at an address 2 bytes past a pair's.
+    x = bf16_probe.special_input(dtype, "cuda").view(-1)[1:n + 1].contiguous()
+    x = torch.cat([x[:1], x])[1:] if dtype == torch.bfloat16 else x
+    got = bf16_probe.quad_probe(x)
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), bf16_probe.quad_reference(x).view(bits))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_quad_chain_sums_disc_bitwise(cuda, dtype):
+    from cornelis_tpu_torch.probes import scan_designs as sd
+
+    spec = (dtype, "disc")
+    run, _ = sd.quad_runner(sd.build_design(spec))
+    bits = torch.int16 if dtype == "bfloat16" else torch.int32
+    for make in (bf16_probe.probe_input, bf16_probe.special_input):
+        x = make(getattr(torch, dtype), "cuda")
+        got, want = run(x), sd.disc_sum_reference(x)
+        torch.cuda.synchronize()
+        same = (got.view(bits) == want.view(bits)) | (torch.isnan(got) & torch.isnan(want))
+        assert bool(same.all())
 
 
 DIFF_FIELDS = ("mat_albedo", "mat_emission", "mat_tint", "mat_roughness", "sphere_center",

@@ -1,8 +1,9 @@
 """The dynamic-scene render (K3) against cornelis_tpu's dynamic-scene kernel.
 
-`ops.dynamic.render_chunk_dynamic` is the megakernel fed by the light table
-that `ops.lights.light_table_dyn` builds from the tables on their device
-(every sphere and plane a row, in float32). It must compute what
+`ops.dynamic.render_chunk_dynamic` is the megakernel with K3's light table
+(every sphere and plane a row, in float32): on a card its launch builds
+the table from the tables in every block; on the CPU the plain version
+takes it from `lights.light_table_dyn_reference`. It must compute what
 `cornelis_tpu.ops.pallas_dynamic.render_chunk_pallas_dynamic` computes,
 here in Pallas interpret mode, ray by ray (spp_chunk 1). Bars as in
 tests/test_torch_nee.py and for the same reason: 99% of rays within
@@ -13,9 +14,11 @@ random and the two frameworks round them differently; channel means
 within 1% everywhere.
 
 Also: the table against `_light_rows_dyn` and `_clamp_base_dyn` (eager
-JAX, one float32 op at a time, so bit for bit), doubling every emission
-doubles the image (the bar of tests/test_dynamic.py), and the scope
-guards.
+JAX, one float32 op at a time, so bit for bit), on the scenes' tables and
+on the edge tables of tests/torch_light_tables.py (sphere_grid(64), a -0
+emission, an infinite and a NaN emission no primitive uses, ids off the
+material table, no emission); doubling every emission doubles the image
+(the bar of tests/test_dynamic.py), and the scope guards.
 """
 
 import jax
@@ -38,6 +41,7 @@ from cornelis_tpu_torch.rng import DEFAULT_SEED, key_row
 from cornelis_tpu_torch.scene.compile import compile_scene, from_numpy_scene
 from cornelis_tpu_torch.scene.description import SceneDescription
 from test_torch_nee import agreement, scenes
+from torch_light_tables import table_case
 
 W = H = 16
 KW = dict(width=W, height=H, spp_chunk=1, spp_total=16, max_depth=8)
@@ -89,9 +93,16 @@ def _pseudo(tables):
     return HostScene(camera=None, spheres=sph, planes=pln, materials=mats, sdfs=())
 
 
-@pytest.mark.parametrize("name", ["cornell_box", "cornell_panel", "mixed_panel"])
+@pytest.mark.parametrize(
+    "name",
+    ["cornell_box", "cornell_panel", "mixed_panel", "sphere_grid(64)", "cornell_neg0_emission",
+     "cornell_inf_nan_unused", "cornell_odd_ids", "cornell_no_emission"],
+)
 def test_light_table_dyn_equals_jax_rows(name):
-    tables = from_numpy_scene(jax.device_get(jcompile(scenes(name)[0])), device="cpu")
+    if name in ("cornell_box", "cornell_panel", "mixed_panel"):
+        tables = from_numpy_scene(jax.device_get(jcompile(scenes(name)[0])), device="cpu")
+    else:
+        tables = table_case(name)
     pseudo = _pseudo(tables)
     got = lights.light_table_dyn(tables)
     rows = got.rows.numpy()
@@ -109,7 +120,7 @@ def test_light_table_dyn_equals_jax_rows(name):
         else:
             pick = (0.0, 0.0, max(w * h, f32(1e-12)))
         np.testing.assert_array_equal(row[lights.COL_R2:], np.array(pick, np.float32))
-    assert got.clamp.item() == np.float32(_clamp_base_dyn(pseudo))
+    np.testing.assert_array_equal(got.clamp.numpy(), np.float32(_clamp_base_dyn(pseudo)))
 
 
 def test_doubling_emission_doubles_the_image():
@@ -149,3 +160,38 @@ def test_cpu_tables_launch_nothing():
     before = (megakernel.LAUNCHES, lights.LAUNCHES)
     render_chunk_dynamic(tables, key_row(1), 0, sampler="uniform", mode="nee", **dict(KW, max_depth=2))
     assert (megakernel.LAUNCHES, lights.LAUNCHES) == before
+
+
+def test_dynamic_table_on_the_cpu_is_the_plain_tables():
+    # On CPU tables, render_rays(dynamic_table=True) traces with
+    # light_table_dyn_reference's table, and launches nothing.
+    tables = compile_scene(scenes("cornell_panel")[1], device="cpu")
+    k0, k1, root = key_row(3)
+    kw = dict(root=root, sampler="sobol", mode="nee", index_bits=4)
+    before = (megakernel.LAUNCHES, megakernel.DYNAMIC_TABLE_LAUNCHES, lights.LAUNCHES)
+    got = megakernel.render_rays(tables, k0, k1, 8, 8, 2, 0, 4, dynamic_table=True, **kw)
+    want = megakernel.render_rays(tables, k0, k1, 8, 8, 2, 0, 4,
+                                  lights=lights.light_table_dyn_reference(tables), **kw)
+    assert torch.equal(got, want)
+    assert (megakernel.LAUNCHES, megakernel.DYNAMIC_TABLE_LAUNCHES, lights.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("case", ["path", "with_lights", "sdf", "pixel_ids", "empty"])
+def test_dynamic_table_guards(case):
+    # dynamic_table builds mode nee's table from spheres and planes alone:
+    # it takes no table of its own, no SDF rows, no pixel list, and needs a
+    # sphere or a plane.
+    tables = compile_scene(scenes("cornell_box")[1], device="cpu")
+    kw = dict(mode="nee", dynamic_table=True)
+    if case == "path":
+        kw["mode"] = "path"
+    elif case == "with_lights":
+        kw["lights"] = lights.light_table_dyn_reference(tables)
+    elif case == "sdf":
+        tables = from_numpy_scene(jax.device_get(jcompile(sdf_gallery())), device="cpu")
+    elif case == "pixel_ids":
+        kw["pixel_ids"] = torch.zeros(4, dtype=torch.int32)
+    else:
+        tables = tables._replace(spheres=tables.spheres[:0], planes=tables.planes[:0])
+    with pytest.raises(ValueError):
+        megakernel.render_rays(tables, 0, 1, 4, 4, 1, 0, 2, **kw)

@@ -137,8 +137,9 @@ def build_parser() -> argparse.ArgumentParser:
         "--profile-dir",
         default=None,
         metavar="DIR",
-        help="Write a torch.profiler trace of the render to DIR as a Chrome trace "
-        "(view with Perfetto or TensorBoard).",
+        help="Write a torch.profiler trace of the session (its set-up and render) to DIR "
+        "as a Chrome trace (view with Perfetto or TensorBoard), with the program's ct.* "
+        "spans on.",
     )
     p.add_argument("--list-scenes", action="store_true", help="List builtin scenes and exit.")
     p.add_argument(
@@ -235,24 +236,29 @@ def _render(args, mesh_shape) -> int:
         tile_size=args.tile_size,
         time_budget_s=args.time_budget,
     )
-    session = RenderSession(load_scene(args.scene), options)
+    scene = load_scene(args.scene)
     if args.profile_dir:
-        result = _profiled(session, args.profile_dir)
+        result = _profiled(lambda: RenderSession(scene, options).render(), options.device,
+                           args.profile_dir)
     else:
-        result = session.render()
+        result = RenderSession(scene, options).render()
     return 0 if result.status == RenderStatus.DONE else 1
 
 
-def _profiled(session, profile_dir: str):
-    """session.render() under torch.profiler, its trace written into
-    `profile_dir` as a Chrome trace (one file per process)."""
+def _profiled(render, device, profile_dir: str):
+    """render() (the session's construction and its render) under
+    torch.profiler with the program's spans on (utils/trace.py), its trace
+    written into `profile_dir` as a Chrome trace (one file per process)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
-    on_cuda = session.tables.camera.device.type == "cuda"
+    from .utils import trace
+
+    on_cuda = torch.device(device).type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_cuda else [])
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir)):
-        result = session.render()
+        with trace.collect():
+            result = render()
         if on_cuda:
             torch.cuda.synchronize()
     return result

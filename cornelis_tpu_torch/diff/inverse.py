@@ -20,6 +20,7 @@ import torch
 
 from ..math.vec import Vec3, clip, maximum
 from ..rng import fold_in, make_key, split
+from ..utils import trace
 from .render import render_diff
 
 # SceneArrays fields that may be optimised, by domain transform.
@@ -179,12 +180,16 @@ class InverseRenderer:
         return self._root_key if self._fixed else fold_in(self._root_key, self.step_count)
 
     def _step(self) -> torch.Tensor:
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self._loss(self.params, self.step_key())
-        loss.backward()
-        self.optimizer.step()
-        self.step_count += 1
-        return loss.detach()
+        with trace.span("ct.inverse.step", self.step_count):
+            self.optimizer.zero_grad(set_to_none=True)
+            with trace.span("ct.inverse.forward"):
+                loss = self._loss(self.params, self.step_key())
+            with trace.span("ct.inverse.backward"):
+                loss.backward()
+            with trace.span("ct.inverse.adam"):
+                self.optimizer.step()
+            self.step_count += 1
+            return loss.detach()
 
     def step(self) -> float:
         """One Adam step; the loss before it."""

@@ -30,6 +30,7 @@ import torch
 
 from .math import color as _color
 from .utils import png as _png
+from .utils import trace
 
 
 class Film:
@@ -65,8 +66,9 @@ class Film:
     def to_srgb8(self, standard_srgb: bool = False) -> np.ndarray:
         """Linear -> sRGB (the reference's 12.95 slope, or 12.92 with
         `standard_srgb`) -> 8-bit (Render.cpp:257-265)."""
-        encoded = _color.srgb_encode(torch.from_numpy(self.image()), standard=standard_srgb)
-        return _color.quantize_to_8bit(encoded).numpy()
+        with trace.span("ct.film.tonemap"):
+            encoded = _color.srgb_encode(torch.from_numpy(self.image()), standard=standard_srgb)
+            return _color.quantize_to_8bit(encoded).numpy()
 
     def save_png(self, path: str, standard_srgb: bool = False) -> None:
         _png.write_png(path, self.to_srgb8(standard_srgb=standard_srgb))

@@ -69,6 +69,7 @@ from .rng import (
     make_ray_streams,
     stream_uniforms,
 )
+from .utils import trace
 
 # Russian-roulette constants (Render.cpp:153-165).
 RR_BASE = 0.55
@@ -298,86 +299,88 @@ def _bounce(scene, state: PathState, detach_sampling: bool = False, sampler: str
     the next rays. detach_sampling detaches the sampled directions, their
     densities and the RR probability (the detached estimator of the
     differentiable mode), and evaluates the BSDF at the detached direction."""
-    nee = mode == "nee"
-    depth = state.depth
-    hit = intersect_scene(scene, state.origin, state.direction)
-    active = state.active & hit.hit
-    params = gather_materials(scene, hit.material)
+    with trace.span("ct.integrator.bounce") as bounce:
+        bounce.set("depth", state.depth)
+        nee = mode == "nee"
+        depth = state.depth
+        hit = intersect_scene(scene, state.origin, state.direction)
+        active = state.active & hit.hit
+        params = gather_materials(scene, hit.material)
 
-    # Emission pickup. nee: an emitter reached by BSDF sampling is weighed
-    # against light sampling (weight 1 at depth 0, and where light sampling
-    # could not have picked it), and each bounce's term is clamped.
-    contrib = state.throughput * emission(params)
-    clamp_val = None
-    if nee:
-        if depth > 0 and scene.num_spheres + scene.num_planes:
-            light_probs, _ = _light_probs(scene)
-            p_light_hit = _light_pdf_for_hit(scene, light_probs, state.origin, hit)
-            w_emis = state.prev_pdf / maximum(state.prev_pdf + p_light_hit, 1e-12)
-            contrib = contrib * w_emis
-        base = nee_clamp if nee_clamp is not None else auto_nee_clamp(scene)
-        clamp_val = nee_clamp_at_depth(base, depth).to(hit.t.device)
-        if depth > 0:  # the camera looking straight at an emitter is not clamped
-            contrib = RGB(*(torch.minimum(c, clamp_val) for c in contrib))
-    radiance = RGB(*(r + torch.where(active, c, 0.0) for r, c in zip(state.radiance, contrib)))
+        # Emission pickup. nee: an emitter reached by BSDF sampling is weighed
+        # against light sampling (weight 1 at depth 0, and where light sampling
+        # could not have picked it), and each bounce's term is clamped.
+        contrib = state.throughput * emission(params)
+        clamp_val = None
+        if nee:
+            if depth > 0 and scene.num_spheres + scene.num_planes:
+                light_probs, _ = _light_probs(scene)
+                p_light_hit = _light_pdf_for_hit(scene, light_probs, state.origin, hit)
+                w_emis = state.prev_pdf / maximum(state.prev_pdf + p_light_hit, 1e-12)
+                contrib = contrib * w_emis
+            base = nee_clamp if nee_clamp is not None else auto_nee_clamp(scene)
+            clamp_val = nee_clamp_at_depth(base, depth).to(hit.t.device)
+            if depth > 0:  # the camera looking straight at an emitter is not clamped
+                contrib = RGB(*(torch.minimum(c, clamp_val) for c in contrib))
+        radiance = RGB(*(r + torch.where(active, c, 0.0) for r, c in zip(state.radiance, contrib)))
 
-    # Draw columns: (x0, x1) the BSDF lobe, (x2 layer, RR); nee adds
-    # (light select, cone u1) and (cone u2, spare).
-    u = stream_uniforms(state.streams, STREAM_BOUNCE_BASE + depth, 8 if nee else 4, sampler,
-                        index_bits)
-    prob = russian_roulette_probability(state.throughput, depth)
-    survive = u[:, 3] <= prob  # killed when prob < u (Render.cpp:189)
+        # Draw columns: (x0, x1) the BSDF lobe, (x2 layer, RR); nee adds
+        # (light select, cone u1) and (cone u2, spare).
+        u = stream_uniforms(state.streams, STREAM_BOUNCE_BASE + depth, 8 if nee else 4, sampler,
+                            index_bits)
+        prob = russian_roulette_probability(state.throughput, depth)
+        survive = u[:, 3] <= prob  # killed when prob < u (Render.cpp:189)
 
-    basis = construct_basis(hit.normal)
-    w_out = -state.direction
+        basis = construct_basis(hit.normal)
+        w_out = -state.direction
 
-    if nee:
-        wi_l, t_light, pdf_l, light_le, valid_l = _sample_light(
-            scene, hit.position, u[:, 4], u[:, 5], u[:, 6]
-        )
+        if nee:
+            wi_l, t_light, pdf_l, light_le, valid_l = _sample_light(
+                scene, hit.position, u[:, 4], u[:, 5], u[:, 6]
+            )
+            if detach_sampling:
+                # The light sample's direction, distance and density are the
+                # sampler's; gradients flow through f, L_e, the cosine and MIS.
+                wi_l, t_light, pdf_l = _detach3(wi_l), t_light.detach(), pdf_l.detach()
+            cos_l = dot(wi_l, hit.normal)
+            shadow_origin = hit.position + wi_l * BOUNCE_EPSILON
+            visible = ~occluded(scene, shadow_origin, wi_l, t_light * (1.0 - 1e-3))
+            f_l = layered_eval(wi_l, w_out, hit.normal, params)
+            p_bsdf_l = layered_pdf_true(wi_l, w_out, hit.normal, params)
+            mis_l = pdf_l / maximum(pdf_l + p_bsdf_l, 1e-12)
+            nee_mask = active & valid_l & visible & (cos_l > 0.0)
+            nee_scale = torch.where(nee_mask, mis_l * cos_l / pdf_l, 0.0)
+            nee_contrib = state.throughput * f_l * light_le * nee_scale
+            radiance = RGB(*(
+                r + torch.where(nee_mask, torch.minimum(c, clamp_val), 0.0)
+                for r, c in zip(radiance, nee_contrib)
+            ))
+
         if detach_sampling:
-            # The light sample's direction, distance and density are the
-            # sampler's; gradients flow through f, L_e, the cosine and MIS.
-            wi_l, t_light, pdf_l = _detach3(wi_l), t_light.detach(), pdf_l.detach()
-        cos_l = dot(wi_l, hit.normal)
-        shadow_origin = hit.position + wi_l * BOUNCE_EPSILON
-        visible = ~occluded(scene, shadow_origin, wi_l, t_light * (1.0 - 1e-3))
-        f_l = layered_eval(wi_l, w_out, hit.normal, params)
-        p_bsdf_l = layered_pdf_true(wi_l, w_out, hit.normal, params)
-        mis_l = pdf_l / maximum(pdf_l + p_bsdf_l, 1e-12)
-        nee_mask = active & valid_l & visible & (cos_l > 0.0)
-        nee_scale = torch.where(nee_mask, mis_l * cos_l / pdf_l, 0.0)
-        nee_contrib = state.throughput * f_l * light_le * nee_scale
-        radiance = RGB(*(
-            r + torch.where(nee_mask, torch.minimum(c, clamp_val), 0.0)
-            for r, c in zip(radiance, nee_contrib)
-        ))
+            with torch.no_grad():
+                wi = layered_sample_direction(w_out, u[:, 0], u[:, 1], u[:, 2], basis, params)
+                pdf = (layered_pdf_true if nee else layered_pdf)(wi, w_out, hit.normal, params)
+                prob = prob.detach()
+            f = layered_eval(wi, w_out, hit.normal, params)
+        else:
+            wi, pdf, f = layered_sample(w_out, u[:, 0], u[:, 1], u[:, 2], basis, params)
+            if nee:  # the true mixture density, not the reference's half-weighted one
+                pdf = layered_pdf_true(wi, w_out, hit.normal, params)
 
-    if detach_sampling:
-        with torch.no_grad():
-            wi = layered_sample_direction(w_out, u[:, 0], u[:, 1], u[:, 2], basis, params)
-            pdf = (layered_pdf_true if nee else layered_pdf)(wi, w_out, hit.normal, params)
-            prob = prob.detach()
-        f = layered_eval(wi, w_out, hit.normal, params)
-    else:
-        wi, pdf, f = layered_sample(w_out, u[:, 0], u[:, 1], u[:, 2], basis, params)
-        if nee:  # the true mixture density, not the reference's half-weighted one
-            pdf = layered_pdf_true(wi, w_out, hit.normal, params)
-
-    new_origin = hit.position + wi * BOUNCE_EPSILON
-    scale = torch.abs(dot(wi, hit.normal)) / (pdf * prob)
-    new_throughput = state.throughput * f * scale
-    active = active & survive
-    return PathState(
-        origin=where(active, new_origin, state.origin),
-        direction=where(active, wi, state.direction),
-        throughput=where(active, new_throughput, state.throughput),
-        radiance=radiance,
-        active=active,
-        depth=depth + 1,
-        streams=state.streams,
-        prev_pdf=torch.where(active, pdf, state.prev_pdf) if nee else state.prev_pdf,
-    )
+        new_origin = hit.position + wi * BOUNCE_EPSILON
+        scale = torch.abs(dot(wi, hit.normal)) / (pdf * prob)
+        new_throughput = state.throughput * f * scale
+        active = active & survive
+        return PathState(
+            origin=where(active, new_origin, state.origin),
+            direction=where(active, wi, state.direction),
+            throughput=where(active, new_throughput, state.throughput),
+            radiance=radiance,
+            active=active,
+            depth=depth + 1,
+            streams=state.streams,
+            prev_pdf=torch.where(active, pdf, state.prev_pdf) if nee else state.prev_pdf,
+        )
 
 
 def trace_paths(scene, origin: Vec3, direction: Vec3, streams: RayStreams, max_depth: int,

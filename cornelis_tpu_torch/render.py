@@ -53,6 +53,7 @@ from .parallel import make_mesh, render_chunk_mesh_megakernel
 from .rng import key_row
 from .scene.compile import compile_scene
 from .scene.description import SceneDescription
+from .utils import trace
 from .utils.logging import log_session_header, logger
 
 # Seconds the drain loop sleeps between polls of the chunks' events.
@@ -151,19 +152,25 @@ class RenderSession:
     """Compile once, render with progress/abort/checkpoint (Render.hpp:16-49)."""
 
     def __init__(self, scene: SceneDescription, options: Optional[RenderOptions] = None):
-        self.options = options or RenderOptions()
-        self.options.validate()
-        self.scene_description = scene
-        self.tables = compile_scene(scene, device=self.options.device)
-        # Two Threefry evaluations in small host torch ops: derive them once.
-        self.key = key_row(self.options.seed)
-        self.lights = None
-        if self.options.integrator == "nee":
-            self.lights = light_table(self.tables, self.options.nee_clamp)
-        # Collective: every rank makes the mesh's process groups.
-        self.mesh = None
-        if self.options.mesh_shape is not None:
-            self.mesh = make_mesh(self.options.mesh_shape)
+        with trace.span("ct.session.setup") as setup:
+            # The frame's request: render()'s spans take it too.
+            self._trace_request = setup.request
+            self.options = options or RenderOptions()
+            self.options.validate()
+            self.scene_description = scene
+            with trace.span("ct.scene.compile"):
+                self.tables = compile_scene(scene, device=self.options.device)
+            # Two Threefry evaluations in small host torch ops: derive them once.
+            with trace.span("ct.session.key"):
+                self.key = key_row(self.options.seed)
+            self.lights = None
+            if self.options.integrator == "nee":
+                with trace.span("ct.session.lights"):
+                    self.lights = light_table(self.tables, self.options.nee_clamp)
+            # Collective: every rank makes the mesh's process groups.
+            self.mesh = None
+            if self.options.mesh_shape is not None:
+                self.mesh = make_mesh(self.options.mesh_shape)
 
     def render(self, on_progress: Optional[ProgressCallback] = None) -> RenderResult:
         opts = self.options
@@ -249,68 +256,69 @@ class RenderSession:
 
         accum = None
         accum_samples = 0
-        for chunk_index, offset in enumerate(chunk_starts):
-            this_chunk = min(spp_chunk, opts.samples_aa - offset)
-            common = dict(
-                width=opts.width,
-                height=opts.height,
-                spp_chunk=this_chunk,
-                spp_total=opts.samples_aa,
-                max_depth=opts.max_depth,
-                sampler=opts.sampler,
-                mode=opts.integrator,
-                nee_clamp=opts.nee_clamp,
-                lights=self.lights,
-            )
-            if mesh is None:
-                chunk = render_chunk(self.tables, self.key, offset, **common)
-            else:
-                chunk = render_chunk_mesh_megakernel(
-                    self.tables, self.key, offset, mesh=mesh, tile_size=opts.tile_size, **common
+        with trace.span("ct.session.dispatch", self._trace_request):
+            for chunk_index, offset in enumerate(chunk_starts):
+                this_chunk = min(spp_chunk, opts.samples_aa - offset)
+                common = dict(
+                    width=opts.width,
+                    height=opts.height,
+                    spp_chunk=this_chunk,
+                    spp_total=opts.samples_aa,
+                    max_depth=opts.max_depth,
+                    sampler=opts.sampler,
+                    mode=opts.integrator,
+                    nee_clamp=opts.nee_clamp,
+                    lights=self.lights,
                 )
-            if opts.checkpoint:
-                film.add_samples(chunk, this_chunk)
-                # Every rank holds the whole film; one writer, since
-                # concurrent writers would share the tmp file.
-                if rank0:
-                    film.save_checkpoint(opts.checkpoint, next_sample=offset + this_chunk,
-                                         seed=opts.seed)
-            else:
-                accum = chunk if accum is None else accum + chunk
-                accum_samples += this_chunk
-            completions.record(this_chunk, on_cuda)
-            progress.chunks_dispatched = chunk_index + 1
-            if chunk_index == 0:
-                # Written once the first chunk is queued, so that the
-                # write overlaps the card's work.
-                log_session_header(opts, self.tables)
-            if opts.time_budget_s > 0 and not opts.checkpoint:
-                # The budget meters wall time, so the chunk must be done
-                # before the clock is read (the checkpoint's fetch waits).
-                completions.wait_last()
-            update_progress()
-            maybe_log()
+                if mesh is None:
+                    chunk = render_chunk(self.tables, self.key, offset, **common)
+                else:
+                    chunk = render_chunk_mesh_megakernel(
+                        self.tables, self.key, offset, mesh=mesh, tile_size=opts.tile_size, **common
+                    )
+                if opts.checkpoint:
+                    film.add_samples(chunk, this_chunk)
+                    # Every rank holds the whole film; one writer, since
+                    # concurrent writers would share the tmp file.
+                    if rank0:
+                        film.save_checkpoint(opts.checkpoint, next_sample=offset + this_chunk,
+                                             seed=opts.seed)
+                else:
+                    accum = chunk if accum is None else accum + chunk
+                    accum_samples += this_chunk
+                completions.record(this_chunk, on_cuda)
+                progress.chunks_dispatched = chunk_index + 1
+                if chunk_index == 0:
+                    # Written once the first chunk is queued, so that the
+                    # write overlaps the card's work.
+                    log_session_header(opts, self.tables)
+                if opts.time_budget_s > 0 and not opts.checkpoint:
+                    # The budget meters wall time, so the chunk must be done
+                    # before the clock is read (the checkpoint's fetch waits).
+                    completions.wait_last()
+                update_progress()
+                maybe_log()
 
-            # Every rank agrees each chunk, with or without a callback of
-            # its own: a callback on rank 0 alone must not leave the other
-            # ranks out of the broadcast it starts.
-            if on_progress is not None or multirank:
-                want_abort = on_progress is not None and (
-                    on_progress(progress, RenderStatus.RUNNING) != RenderCommand.CONTINUE
-                )
-                if agree(want_abort):
-                    status = RenderStatus.ABORTED
+                # Every rank agrees each chunk, with or without a callback of
+                # its own: a callback on rank 0 alone must not leave the other
+                # ranks out of the broadcast it starts.
+                if on_progress is not None or multirank:
+                    want_abort = on_progress is not None and (
+                        on_progress(progress, RenderStatus.RUNNING) != RenderCommand.CONTINUE
+                    )
+                    if agree(want_abort):
+                        status = RenderStatus.ABORTED
+                        break
+
+                # The time budget; rank 0's clock decides for every rank.
+                if (
+                    opts.time_budget_s > 0
+                    and chunk_index + 1 < len(chunk_starts)
+                    and agree(time.perf_counter() - start >= opts.time_budget_s)
+                ):
+                    logger.info("Time budget (%.1f s) reached after %d/%d samples.",
+                                opts.time_budget_s, progress.samples_completed, opts.samples_aa)
                     break
-
-            # The time budget; rank 0's clock decides for every rank.
-            if (
-                opts.time_budget_s > 0
-                and chunk_index + 1 < len(chunk_starts)
-                and agree(time.perf_counter() - start >= opts.time_budget_s)
-            ):
-                logger.info("Time budget (%.1f s) reached after %d/%d samples.",
-                            opts.time_budget_s, progress.samples_completed, opts.samples_aa)
-                break
 
         # Everything is dispatched: with a callback, report completions as
         # the device works through the queue, up to the last chunk, whose
@@ -333,13 +341,17 @@ class RenderSession:
 
         if film is None:
             film = Film(opts.width, opts.height)
+        # No progress line after the wait: a log record there is on the
+        # wall (the loops above log while the device works). The wait
+        # comes before the fetch, so that the fetch's span holds the copy
+        # and the host's add alone.
+        completions.wait_last()
         if accum is not None:
-            film.add_samples(accum, accum_samples)  # waits for the device
+            with trace.span("ct.film.fetch", self._trace_request) as fetch:
+                fetch.set("bytes", accum.numel() * accum.element_size())
+                film.add_samples(accum, accum_samples)
         if (on_progress is not None or multirank) and agree(drain_abort):
             status = RenderStatus.ABORTED
-        # No progress line after the wait: a log record there is on the
-        # wall (the loops above log while the device works).
-        completions.wait_last()
         update_progress()
         if status == RenderStatus.ABORTED:
             logger.warning("Render was aborted.")
@@ -361,4 +373,5 @@ def render_scene(
     on_progress: Optional[ProgressCallback] = None,
 ) -> RenderResult:
     """One-shot convenience: RenderSession(...).render() (Render.hpp:33)."""
-    return RenderSession(scene, options).render(on_progress)
+    with trace.span("ct.frame"):
+        return RenderSession(scene, options).render(on_progress)

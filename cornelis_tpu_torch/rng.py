@@ -33,6 +33,7 @@ import torch
 from .math.vec import PI, Basis, Vec3
 from .ops.threefry import threefry2x32
 from .sampling import hash32
+from .utils import trace
 
 # Reference default seed (PRNG.hpp:12).
 DEFAULT_SEED = 19791102
@@ -144,26 +145,29 @@ def make_ray_streams(root: torch.Tensor, pixel_ids: torch.Tensor,
     """Sampler state from global (pixel, sample) pairs, so that any
     partition of pixels or samples draws the same numbers. The Sobol seed
     is hash32(pixel ^ hash32(one word of fold_in(root, 0x50B0)))."""
-    pixel_ids = pixel_ids.to(torch.int64)
-    sample_idx = sample_idx.to(torch.int64)
-    root_word = bits(fold_in(root, _SOBOL_ROOT), 1)[0]
-    return RayStreams(
-        key=pixel_sample_keys(root, pixel_ids, sample_idx),
-        pixel_seed=hash32(pixel_ids ^ hash32(root_word)),
-        sample_idx=sample_idx,
-    )
+    with trace.span("ct.rng.draws"):
+        pixel_ids = pixel_ids.to(torch.int64)
+        sample_idx = sample_idx.to(torch.int64)
+        root_word = bits(fold_in(root, _SOBOL_ROOT), 1)[0]
+        return RayStreams(
+            key=pixel_sample_keys(root, pixel_ids, sample_idx),
+            pixel_seed=hash32(pixel_ids ^ hash32(root_word)),
+            sample_idx=sample_idx,
+        )
 
 
 def stream_uniforms(streams: RayStreams, stream: int, num: int, sampler: str = "uniform",
                     index_bits: int = 32) -> torch.Tensor:
     """`num` draws per ray of draw group `stream`, (N, num) float32: the
     Threefry uniforms, or the Owen-scrambled Sobol ones."""
-    if sampler == "uniform":
-        return ray_uniforms(streams.key, stream, num)
-    if sampler == "sobol":
-        from .sampling import sobol_uniforms
+    with trace.span("ct.rng.draws"):
+        if sampler == "uniform":
+            return ray_uniforms(streams.key, stream, num)
+        if sampler == "sobol":
+            from .sampling import sobol_uniforms
 
-        return sobol_uniforms(streams.pixel_seed, streams.sample_idx, stream, num, index_bits)
+            return sobol_uniforms(streams.pixel_seed, streams.sample_idx, stream, num,
+                                  index_bits)
     raise ValueError(f"unknown sampler '{sampler}' (expected uniform|sobol)")
 
 

@@ -13,6 +13,8 @@ import zlib
 
 import numpy as np
 
+from . import trace
+
 
 def _chunk(tag: bytes, payload: bytes) -> bytes:
     return (
@@ -35,7 +37,10 @@ def encode_png(image: np.ndarray, compress_level: int = 6) -> bytes:
     raw = np.empty((h, 1 + w * 3), np.uint8)
     raw[:, 0] = 0
     raw[:, 1:] = img.reshape(h, w * 3)
-    idat = zlib.compress(raw.tobytes(), compress_level)
+    with trace.span("ct.png.deflate") as deflate:
+        idat = zlib.compress(raw.tobytes(), compress_level)
+        deflate.set("bytes_in", raw.nbytes)
+        deflate.set("bytes_out", len(idat))
 
     return b"".join(
         [

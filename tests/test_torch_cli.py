@@ -181,3 +181,6 @@ class TestEndToEnd:
         assert len(traces) == 1
         events = json.loads(traces[0].read_text())["traceEvents"]
         assert any(e.get("name") == "aten::sum" for e in events)
+        # The session's set-up is profiled, and the program's spans are on.
+        names = {e.get("name") for e in events}
+        assert {"ct.session.setup", "ct.session.dispatch", "ct.png.deflate"} <= names

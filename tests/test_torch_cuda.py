@@ -510,3 +510,49 @@ def test_cuda_inverse_renderer_step(cuda):
         assert leaf.device.type == "cuda" and leaf.grad is not None
         assert bool(torch.isfinite(leaf.grad).all())
     assert bool((inv.params["mat_albedo"].x.grad != 0).any())
+
+
+def test_cuda_a_span_holds_its_kernels_device_interval(cuda):
+    """The spans' clock is the profiler's: a span around a launch and its
+    synchronise holds the kernel's device interval in the profile."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cornelis_tpu_torch.utils import trace
+
+    x = torch.ones(1 << 24, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with trace.collect() as spans:
+            with trace.span("ct.check"):
+                x.mul_(2.0)
+                torch.cuda.synchronize()
+    kernels = [(e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
+    (span,) = spans
+    assert len(kernels) == 1
+    start, end = kernels[0]
+    print(f"span opens {(start - span.start_ns) / 1e3} us before the kernel starts and closes "
+          f"{(span.end_ns - end) / 1e3} us after it ends ({(end - start) / 1e3} us)")
+    assert span.start_ns <= start < end <= span.end_ns
+
+
+def test_cuda_the_backward_recompute_hangs_under_the_step(cuda):
+    """On the card autograd runs the backward on a thread of its own: the
+    recomputed bounces carry the step's id under ct.inverse.backward."""
+    from cornelis_tpu_torch.utils import trace
+
+    scene = scene_arrays(compile_scene(tlib.sphere_on_plane(), device="cuda"))
+    with torch.no_grad():
+        target = render_diff(scene, make_key(9, "cuda"), width=8, height=8, spp=2, max_depth=2)
+    inv = InverseRenderer(scene, target, fields=("mat_albedo",), width=8, height=8, spp=2,
+                          max_depth=2)
+    with trace.collect() as spans:
+        inv.step()
+    step = next(s for s in spans if s.name == "ct.inverse.step")
+    backward = next(s for s in spans if s.name == "ct.inverse.backward")
+    recompute = [s for s in spans if s.name == "ct.integrator.bounce" and s.parent == backward.id]
+    assert len(recompute) == 4  # both bounces of the two renders (key_strategy "dual")
+    assert {s.request for s in spans} == {step.request}
+    print(f"recomputed bounces on threads {sorted({s.thread for s in recompute})}, the step on "
+          f"{step.thread}")

@@ -11,7 +11,7 @@ raises, so the exit code is not 0 and no result line is printed:
   2. build: every library of ops/csrc/ with nvcc, in parallel, timed, and
      the registers, spills and SASS size of each kernel instantiation (no
      megakernel instantiation may spill, those that read a pixel list
-     included, nor any probe kernel; the probes library must be built with
+     included, nor any probe or draws kernel; the probes library must be built with
      -fmad=false); the SASS instructions a ray spends on a sphere in K5
      and K6 and an (element, object) in K4, and their launch shapes; K4's
      "disc" design (probes/scan_designs.py: probes.cu with quad_root
@@ -80,10 +80,14 @@ raises, so the exit code is not 0 and no result line is printed:
      profiler's kernel time beside the chained launches' CUDA-event time,
      which the host's launch rate bounds) and the zero fill against
      torch.zeros (CUDA events, with torch.empty's time beside them: the
-     allocation both pay); then the pinned NEE firefly of
+     allocation both pay); the wavefront's draws kernels (ops/csrc/draws.cu)
+     at the inverse cell's 2,097,152 rays a render, bit for bit the torch
+     version on the card, and stream_uniforms at num 4 and ray_streams
+     timed beside it, their bytes bound and their issue floor by integer
+     operations (`draws_phase`); then the pinned NEE firefly of
      tests/test_nee.py on the kernel, clamp off and on (printed only);
-  6. the differentiable mode, torch ops under autograd (no kernel of its
-     own): (a) the wavefront's render_chunk against the megakernel's on
+  6. the differentiable mode, torch ops under autograd and the draws
+     kernels: (a) the wavefront's render_chunk against the megakernel's on
      Cornell at 256x256, 32 spp, max_depth 64, path/uniform and nee/sobol
      (different draws: per-channel image means within 2%); (b) render_diff
      and the gradients of all seven float fields on the card against the
@@ -95,7 +99,9 @@ raises, so the exit code is not 0 and no result line is printed:
      InverseRenderer steps at the JAX package's inverse-render shape
      (Cornell 256x256, 32 spp, max_depth 16, albedo and roughness, "dual",
      lr 5e-2) and at bench.py's (128x128, 32 spp, max_depth 8), each mode:
-     a warm step, 8 timed steps, the loss without gradient 8 times, peak
+     a warm step (its draws-kernel launches checked: the streams twice, the
+     uniforms 2 x (1 + 2 x max_depth); those of the demo path step are the
+     kernels line's launches of both), 8 timed steps, the loss without gradient 8 times, peak
      memory; (e) the albedo recovery of tests/test_diff.py on the card
      (sphere_on_plane 24x24, 250 steps); (f) one profiled demo step: the
      busiest device operations and the share of the gather's backward. Its
@@ -204,6 +210,18 @@ STAGE = "stage_tables"
 ZERO = "zero_fill"
 BAKED, DYNAMIC = "scan_baked", "scan_dynamic"
 QUAD = {"float32": "quad_probe f32", "bfloat16": "quad_probe bf16"}
+# The wavefront's draws kernels (ops/csrc/draws.cu): the uniforms of a draw
+# group and the ray-stream builder. They replace no TPU kernel: XLA fused
+# cornelis_tpu/rng.py's draws into the wavefront.
+DRAWS, RAY_STREAMS = "stream_uniforms", "ray_streams"
+DRAWS_TPU = "none: cornelis_tpu/rng.py's draws, fused by XLA"
+# The inverse-render cell's rays a render (256 x 256 pixels, 32 spp).
+DRAWS_N = 256 * 256 * 32
+# 32-bit integer operations of a Threefry-2x32 block: the third key word
+# (2), the counter words (2), 20 rounds of add, rotate and xor (60) and 5
+# key injections (15). A uniform adds 3 (xor, shift and or, subtract), a
+# hash32 6.
+THREEFRY_OPS = 79
 # The SDF phase-5 plain version traces every SDF_STRIDE-th ray of the
 # kernel's 32-spp chunk (a stride prime to 32, so every sample index of
 # the chunk is among them): 270,601 rays.
@@ -324,6 +342,9 @@ def instantiation_name(entry: str) -> str:
     m = re.search(r"scan_bakedILi(\d+)E", entry)
     if m:
         return f"{BAKED} {m.group(1)}"
+    for name in (DRAWS, RAY_STREAMS):
+        if name in entry:
+            return name
     if "quad_probe" in entry:
         return QUAD["bfloat16" if "bfloat16" in entry else "float32"]
     for name in (DYNAMIC, ZERO, TABLE):
@@ -611,6 +632,77 @@ def hold_to_plain(name, kern, plain):
     return frac, err
 
 
+def draws_phase(ptxas: dict, listings: dict, card: str) -> dict:
+    """The wavefront's draws kernels (ops/csrc/draws.cu) at the inverse
+    cell's rays a render: bit for bit the torch version on the card, then
+    `stream_uniforms` at num = 4 and `ray_streams` timed (the profiler's
+    kernel time, and CUDA events over chained launches) beside the torch
+    version, their bytes over 3.35 TB/s and their issue floor (their 32-bit
+    integer operations a ray over the card's schedulers at the SM clock).
+    Returns their kernels-line records, whose launches phase 6 counts on the
+    main path."""
+    import torch
+
+    from cornelis_tpu_torch import rng
+    from cornelis_tpu_torch.ops import draws
+    from cornelis_tpu_torch.sampling import hash32
+    from cornelis_tpu_torch.utils.timing import event_ms, kernel_ms
+
+    for name in (DRAWS, RAY_STREAMS):
+        regs, stack, spill = ptxas[name]
+        print(f"{name}: {regs} registers, {stack} B stack, {spill} B spilled, "
+              f"{len(listings.get(name, ())) or 'uncounted'} SASS instructions")
+    n = DRAWS_N
+    keys = torch.randint(0, 1 << 32, (n, 2), dtype=torch.int64, device="cuda")
+    keys[::3, 1] |= 0x80000000
+    for num in (2, 4, 7, 8):
+        for stream in (0, 17, 2**32 - 1):
+            got = draws.stream_uniforms(keys, stream, num)
+            want = rng.ray_uniforms(keys, stream, num)
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"stream_uniforms num {num}, stream {stream}: not the torch version's bits")
+    pixel = torch.arange(n // 32, device="cuda").repeat_interleave(32)
+    sample = torch.arange(32, device="cuda").repeat(n // 32)
+    root = rng.make_key(SEED, "cuda")
+    got_keys, got_seed = draws.ray_streams(root, pixel, sample)
+    root_word = rng.bits(rng.fold_in(root, 0x50B0), 1)[0]
+    check(torch.equal(got_keys, rng.pixel_sample_keys(root, pixel, sample))
+          and torch.equal(got_seed, hash32(pixel ^ hash32(root_word))),
+          "ray_streams: not the torch version's keys and seeds")
+    print(f"draws kernels bit for bit the torch version at {n} rays (num 2, 4, 7, 8; streams 0, "
+          f"17, 2^32 - 1; ray_streams at 256^2 x 32 spp)")
+
+    mhz = sm_clock_mhz()
+    schedulers = torch.cuda.get_device_properties(0).multi_processor_count * SCHEDULERS_PER_SM
+    out = {}
+    for name, fn, plain, nbytes, ops in (
+        (DRAWS, lambda: draws.stream_uniforms(keys, 17, 4),
+         lambda: rng.ray_uniforms(keys, 17, 4), 16 * n + 16 * n, 5 * THREEFRY_OPS + 4 * 3),
+        (RAY_STREAMS, lambda: draws.ray_streams(root, pixel, sample),
+         lambda: (rng.pixel_sample_keys(root, pixel, sample), hash32(pixel ^ hash32(root_word))),
+         16 * n + 16 * n + 8 * n, 4 * THREEFRY_OPS + 2 * 6 + 1),
+    ):
+        ms, kept = kernel_ms(fn, 64, name)
+        chained = event_ms(fn, 200)
+        plain_ms = event_ms(plain, 5)
+        bound, bound_by = bound_ms(nbytes)
+        floor = ops * n / 32 / schedulers / (mhz * 1e3)
+        out[name] = {
+            "name": name, "route": "cuda", "source": CSRC + "draws.cu", "replaces": DRAWS_TPU,
+            "registers": ptxas[name][0], "spill_bytes": ptxas[name][2],
+            "launches": 0, "fracs": [1.0], "errs": [0.0],
+            "ms": ms, "chained_ms": chained, "profiler_kept": [kept, 64], "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "issue_floor_ms": floor, "int_ops": ops,
+            "library_ms": None, "tol": 0.0, "rays": n,
+        }
+        print(f"{name}: kernel {ms:.5f} ms on the device (profiler, {kept} of 64 kept), "
+              f"{chained:.5f} ms a chained launch (CUDA events), torch version {plain_ms:.4f} ms "
+              f"({plain_ms / ms:.1f}x); bytes bound {bound:.5f} ms, issue floor {floor:.5f} ms "
+              f"({ops} integer operations a ray, {schedulers} schedulers at {mhz:.0f} MHz) at "
+              f"{n} rays on {card}")
+    return out
+
+
 # Phase 6. The seven float fields of tests/test_diff.py; each gradient
 # within 2% relative L2 of the CPU's, over the pixels whose image agrees
 # (the knife-edge rays of ROADMAP §C go elsewhere under another rounding)
@@ -696,7 +788,7 @@ def diff_phase(device: str, card: str, cpu_scale: int = 1) -> dict:
     from cornelis_tpu_torch import integrator
     from cornelis_tpu_torch.diff import InverseRenderer, make_loss, render_diff
     from cornelis_tpu_torch.math.vec import Vec3
-    from cornelis_tpu_torch.ops import megakernel
+    from cornelis_tpu_torch.ops import draws, megakernel
     from cornelis_tpu_torch.rng import fold_in, key_row, make_key
     from cornelis_tpu_torch.scene.compile import compile_scene, scene_arrays
     from cornelis_tpu_torch.scene.library import cornell_box, sphere_on_plane
@@ -789,8 +881,19 @@ def diff_phase(device: str, card: str, cpu_scale: int = 1) -> dict:
             inv = InverseRenderer(start if shape == "demo" else scene, target,
                                   fields=("mat_albedo", "mat_roughness"), learning_rate=5e-2,
                                   seed=3, key_strategy="dual", mode=mode, **kw)
+            draws.LAUNCHES.update(stream_uniforms=0, ray_streams=0)
             first = inv.step()
             sync()
+            if device == "cuda":
+                # Two renders ("dual"): the streams, the camera's draws, and
+                # each bounce's forward and recomputed.
+                launched = dict(draws.LAUNCHES)
+                want = {DRAWS: 2 * (1 + 2 * depth), RAY_STREAMS: 2}
+                print(f"(d) {shape} {mode}: draws kernels launched in one step {launched}")
+                check(launched == want, f"(d) {prefix}: draws kernels launched {launched}, "
+                      f"not {want}")
+                if shape == "demo" and mode == "path":  # the inverse cell's step
+                    record["draws_launches_a_step"] = launched
             t0 = time.perf_counter()
             losses = inv.run(DIFF_STEPS)
             sync()
@@ -1797,12 +1900,13 @@ def main() -> int:
     for name, (regs, stack, spill) in sorted(ptxas.items()):
         print(f"  {name}: {regs} registers, {stack} B stack, {spill} B spilled"
               + (f", {len(listings[name])} SASS instructions" if name in listings else ""))
-    check(len(ptxas) == 28, f"expected 28 kernel instantiations, ptxas reported {sorted(ptxas)}")
+    check(len(ptxas) == 30, f"expected 30 kernel instantiations, ptxas reported {sorted(ptxas)}")
     check("-fmad=false" in build.EXTRA_FLAGS["probes"], "the probes library lost -fmad=false")
     # Checked at the end, so that a run that fails here still reports the rest.
     spilled = {name: spill for name, (_r, _s, spill) in ptxas.items()
-               if name.startswith(("megakernel", STAGE, BAKED, DYNAMIC, "quad_probe")) and spill != 0}
-    print(f"megakernel and probe instantiations that spill: {spilled or 'none'}")
+               if name.startswith(("megakernel", STAGE, BAKED, DYNAMIC, "quad_probe",
+                                   DRAWS, RAY_STREAMS)) and spill != 0}
+    print(f"megakernel, probe and draws kernels that spill: {spilled or 'none'}")
     scan_shapes = {BAKED: scene_table.launch_shape("baked"),
                    DYNAMIC: scene_table.launch_shape("dynamic")}
     per_sphere = sass_per_sphere(listings, scan_shapes)
@@ -2397,6 +2501,8 @@ def main() -> int:
     ms_f32, ms_bf16 = (records[QUAD[dtype]]["ms"] for dtype in ("float32", "bfloat16"))
     print(f"K4 bf16 / f32 throughput on the device: {ms_f32 / ms_bf16:.3f}x on {card}")
 
+    records.update(draws_phase(ptxas, listings, card))
+
     # The firefly of tests/test_nee.py: Cornell 512^2, nee + sobol, spp_total
     # 2048, pixel 77580, samples 544-575, rendered as the chunk that holds it.
     lo, hi = FIREFLY_SAMPLES
@@ -2421,6 +2527,8 @@ def main() -> int:
 
     phase("6. the differentiable mode (torch wavefront under autograd)")
     diff_record = diff_phase("cuda", card)
+    for name in (DRAWS, RAY_STREAMS):
+        records[name]["launches"] = diff_record["draws_launches_a_step"][name]
     phase_done()
 
     phase("7. the mesh: K1 through its pixel-id operand, and ranks that share the card")
@@ -2432,7 +2540,7 @@ def main() -> int:
     session_record = session_phase(card)
     phase_done()
 
-    check(not spilled, f"megakernel or probe instantiations spill: {spilled}")
+    check(not spilled, f"megakernel, probe or draws kernels spill: {spilled}")
     kernels = []
     for rec in records.values():
         fracs, errs = rec.pop("fracs"), rec.pop("errs")

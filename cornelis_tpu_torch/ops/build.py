@@ -37,7 +37,7 @@ NVCC_FLAGS = (
 # versions do (the reasons are in csrc/megakernel.cu and csrc/probes.cu).
 EXTRA_FLAGS = {"megakernel_nee": ("-fmad=false",), "probes": ("-fmad=false",)}
 # The libraries the port's kernels live in, in csrc/<name>.cu.
-LIBRARIES = ("megakernel", "megakernel_nee", "lights", "warm", "probes")
+LIBRARIES = ("megakernel", "megakernel_nee", "lights", "warm", "probes", "draws")
 
 # nvcc's output (the ptxas register and spill report) of the builds made
 # by this process, by source name.

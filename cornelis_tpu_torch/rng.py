@@ -11,6 +11,11 @@ bits to floats by jax's mantissa fill, (bits >> 9) | 0x3F800000 read as
 a float32, minus 1 (not the kernel's `to_unit_float`).
 `tests/test_torch_rng.py` pins each against jax.
 
+`make_ray_streams` and `stream_uniforms` (sampler "uniform") dispatch on
+the device of their tensors: on a CUDA device each call is one launch of
+the draws kernel (ops/draws.py, ops/csrc/draws.cu), bit for bit the torch
+code here, which runs for tensors on the CPU.
+
 The kernel's key words are `jax.random.key_data(jax.random.key(seed))`
 (pallas_integrator.py:1044). For threefry2x32 keys with 64-bit mode off
 that is (0, seed) for every seed in [0, 2^32); `tests/test_torch_rng.py`
@@ -31,6 +36,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from .math.vec import PI, Basis, Vec3
+from .ops import draws
 from .ops.threefry import threefry2x32
 from .sampling import hash32
 from .utils import trace
@@ -148,6 +154,11 @@ def make_ray_streams(root: torch.Tensor, pixel_ids: torch.Tensor,
     with trace.span("ct.rng.draws"):
         pixel_ids = pixel_ids.to(torch.int64)
         sample_idx = sample_idx.to(torch.int64)
+        if pixel_ids.device.type == "cuda":
+            key, pixel_seed = draws.ray_streams(
+                root.to(pixel_ids.device, torch.int64).contiguous(), pixel_ids.contiguous(),
+                sample_idx.contiguous())
+            return RayStreams(key=key, pixel_seed=pixel_seed, sample_idx=sample_idx)
         root_word = bits(fold_in(root, _SOBOL_ROOT), 1)[0]
         return RayStreams(
             key=pixel_sample_keys(root, pixel_ids, sample_idx),
@@ -162,7 +173,11 @@ def stream_uniforms(streams: RayStreams, stream: int, num: int, sampler: str = "
     Threefry uniforms, or the Owen-scrambled Sobol ones."""
     with trace.span("ct.rng.draws"):
         if sampler == "uniform":
-            return ray_uniforms(streams.key, stream, num)
+            key = streams.key
+            if key.device.type == "cuda":
+                u = draws.stream_uniforms(key.reshape(-1, 2).contiguous(), stream, num)
+                return u.reshape(*key.shape[:-1], num)
+            return ray_uniforms(key, stream, num)
         if sampler == "sobol":
             from .sampling import sobol_uniforms
 

@@ -30,12 +30,20 @@ K4 bit for bit on its probe and special inputs, and its chain, summing
 disc in place of the root (probes/scan_designs.py's "disc" design, built
 from probes.cu), bit for bit the plain version's.
 
-The differentiable mode (torch ops, no kernel of its own) on the card
+The differentiable mode (torch ops and the draws kernel) on the card
 against the same code on the CPU: render_diff on Cornell at 16x16, 8 spp,
 max_depth 4, pixels and gradients held as tests/test_torch_diff.py holds
 the CPU against JAX (99% of pixels within 1e-4, 90% in mode nee; every
 float field within 2% relative L2 over the pixels that agree, the light's
 albedo and tint rows left out); and one InverseRenderer step on the card.
+
+The wavefront's draws kernel (ops/csrc/draws.cu) is integer arithmetic:
+its uniforms are the torch version's on the card bit for bit, its keys and
+Sobol seeds the CPU's; render_diff's image and gradients with it are
+bitwise those with the torch draws (deterministic algorithms on, so that
+the gather's backward adds in a fixed order). An Adam step launches it
+once for each draw call of its two renders, forward and recompute; a
+frame through the megakernel never.
 
 The mesh's pixel-id operand (a shard of a (2, 2) mesh): every
 instantiation gives the contiguous launch's rays bit for bit, and meets
@@ -47,8 +55,8 @@ import numpy as np
 import pytest
 import torch
 
-from cornelis_tpu_torch import RenderOptions, RenderSession, RenderStatus
-from cornelis_tpu_torch.ops import lights, megakernel, warm
+from cornelis_tpu_torch import RenderOptions, RenderSession, RenderStatus, render_scene
+from cornelis_tpu_torch.ops import draws, lights, megakernel, warm
 from cornelis_tpu_torch.ops.dynamic import render_chunk_dynamic
 from cornelis_tpu_torch.probes import bf16 as bf16_probe
 from cornelis_tpu_torch.probes import scene_table
@@ -56,7 +64,7 @@ from cornelis_tpu_torch.rng import DEFAULT_SEED, key_row
 from cornelis_tpu_torch.scene import library as tlib
 from cornelis_tpu_torch.diff import InverseRenderer, render_diff
 from cornelis_tpu_torch.math.vec import Vec3
-from cornelis_tpu_torch.rng import make_key
+from cornelis_tpu_torch.rng import RayStreams, make_key, make_ray_streams, ray_uniforms, stream_uniforms
 from cornelis_tpu_torch.scene.compile import compile_scene, scene_arrays
 from torch_light_tables import CASE_NAMES, table_case
 
@@ -556,3 +564,116 @@ def test_cuda_the_backward_recompute_hangs_under_the_step(cuda):
     assert {s.request for s in spans} == {step.request}
     print(f"recomputed bounces on threads {sorted({s.thread for s in recompute})}, the step on "
           f"{step.thread}")
+
+
+# -- The wavefront's draws kernel (ops/csrc/draws.cu) ----------------------
+
+DRAW_STREAMS = (0, 1, 17, 2**32 - 1)
+EDGE_IDS = (0, 1, 2**31 - 1, 2**31, 2**32 - 1)
+
+
+def _random_words(shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 1 << 32, shape, generator=g, dtype=torch.int64)
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 2_097_153])
+@pytest.mark.parametrize("num", [2, 4, 7, 8])
+def test_cuda_draws_kernel_is_the_torch_version_bitwise(cuda, num, n):
+    keys = _random_words((n, 2), num)
+    keys[0] = torch.tensor([0xFFFFFFFF, 0x80000000])
+    keys[::3, 1] |= 0x80000000  # the top bit set on every third ray
+    keys = keys.cuda()
+    streams = RayStreams(key=keys, pixel_seed=keys[:, 0], sample_idx=keys[:, 1])
+    for stream in DRAW_STREAMS:
+        before = dict(draws.LAUNCHES)
+        got = stream_uniforms(streams, stream, num)
+        assert draws.LAUNCHES == {**before, "stream_uniforms": before["stream_uniforms"] + 1}
+        want = ray_uniforms(keys, stream, num)  # the torch ops, on the card
+        assert got.shape == (n, num) and got.dtype == torch.float32
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), stream
+
+
+@pytest.mark.parametrize("seed", [0, DEFAULT_SEED, 2**32 - 1])
+def test_cuda_make_ray_streams_is_the_cpus_bitwise(cuda, seed):
+    ids = torch.tensor(EDGE_IDS, dtype=torch.int64)
+    pixel = torch.cat([ids.repeat_interleave(len(EDGE_IDS)), _random_words((300_000,), seed)])
+    sample = torch.cat([ids.repeat(len(EDGE_IDS)), _random_words((300_000,), seed + 1)])
+    want = make_ray_streams(make_key(seed), pixel, sample)
+    for root in (make_key(seed, "cuda"), make_key(seed)):  # a root on the host is moved over
+        before = dict(draws.LAUNCHES)
+        got = make_ray_streams(root, pixel.cuda(), sample.cuda())
+        assert draws.LAUNCHES == {**before, "ray_streams": before["ray_streams"] + 1}
+        for a, b in zip(got, want):
+            assert a.device.type == "cuda" and a.dtype == torch.int64
+            assert torch.equal(a.cpu(), b)
+
+
+def _diff_loss_grads(scene, mode):
+    leaf = lambda t: t.detach().clone().requires_grad_(True)
+    leaves = {f: Vec3(*(leaf(c) for c in v)) if isinstance(v, Vec3) else leaf(v)
+              for f, v in ((f, getattr(scene, f)) for f in DIFF_FIELDS)}
+    img = render_diff(scene._replace(**leaves), make_key(5, scene.device), width=16, height=16,
+                      spp=8, max_depth=4, mode=mode)
+    loss = torch.mean(img)
+    loss.backward()
+    grads = {f: torch.cat([c.grad for c in (v if isinstance(v, Vec3) else (v,))])
+             for f, v in leaves.items()}
+    return loss.detach(), img.detach(), grads
+
+
+@pytest.mark.parametrize("mode", ["path", "nee"])
+def test_cuda_render_diff_is_bitwise_that_with_the_torch_draws(cuda, mode, monkeypatch):
+    from cornelis_tpu_torch import integrator, rng
+
+    card = scene_arrays(compile_scene(tlib.cornell_box(), device="cuda"))
+
+    def torch_streams(root, pixel_ids, sample_idx):
+        cpu = rng.make_ray_streams(root.cpu(), pixel_ids.cpu(), sample_idx.cpu())
+        return RayStreams(*(t.to(pixel_ids.device) for t in cpu))
+
+    def torch_uniforms(streams, stream, num, sampler="uniform", index_bits=32):
+        assert sampler == "uniform"
+        return ray_uniforms(streams.key, stream, num)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        before = dict(draws.LAUNCHES)
+        kernel = _diff_loss_grads(card, mode)
+        launched = {k: draws.LAUNCHES[k] - before[k] for k in before}
+        monkeypatch.setattr(integrator, "make_ray_streams", torch_streams)
+        monkeypatch.setattr(integrator, "stream_uniforms", torch_uniforms)
+        before = dict(draws.LAUNCHES)
+        plain = _diff_loss_grads(card, mode)
+        assert draws.LAUNCHES == before
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # The streams once; the camera, and 4 bounces forward and recomputed.
+    assert launched == {"ray_streams": 1, "stream_uniforms": 1 + 2 * 4}
+    assert torch.equal(kernel[0], plain[0]) and torch.equal(kernel[1], plain[1])
+    for f in DIFF_FIELDS:
+        assert torch.equal(kernel[2][f], plain[2][f]), f
+
+
+def test_cuda_inverse_step_launches_the_draws_kernel_per_draw_call(cuda):
+    scene = scene_arrays(compile_scene(tlib.cornell_box(), device="cuda"))
+    max_depth = 3
+    with torch.no_grad():
+        target = render_diff(scene, make_key(9, "cuda"), width=16, height=16, spp=4,
+                             max_depth=max_depth)
+    inv = InverseRenderer(scene, target, fields=("mat_albedo",), width=16, height=16, spp=4,
+                          max_depth=max_depth)
+    before = dict(draws.LAUNCHES)
+    inv.step()
+    # Two renders ("dual"): streams, camera, and each bounce forward and recomputed.
+    launched = {k: draws.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {"ray_streams": 2, "stream_uniforms": 2 * (1 + max_depth * 2)}
+
+
+def test_cuda_frame_launches_no_draws_kernel(cuda):
+    opts = RenderOptions(width=32, height=32, samples_aa=8, spp_chunk=4, max_depth=8,
+                         output=None, device="cuda")
+    before = (dict(draws.LAUNCHES), megakernel.LAUNCHES)
+    result = render_scene(tlib.cornell_box(), opts)
+    assert result.status == RenderStatus.DONE
+    assert (draws.LAUNCHES, megakernel.LAUNCHES) == (before[0], before[1] + 2)

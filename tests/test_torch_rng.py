@@ -195,3 +195,76 @@ def test_stream_uniforms_rejects_unknown_sampler():
     ts = trng.make_ray_streams(trng.make_key(1), _t([0]), _t([0]))
     with pytest.raises(ValueError, match="unknown sampler"):
         trng.stream_uniforms(ts, 0, 2, "halton")
+
+
+# Edge ids of a (pixel, sample) pair: the draws kernel (ops/csrc/draws.cu)
+# reads the low 32 bits of each int64 word, and is held to this torch code
+# on the card.
+EDGE_IDS = [0, 1, 2**31 - 1, 2**31, 2**32 - 2, 2**32 - 1]
+
+
+@pytest.mark.parametrize("stream", [0, 1, 17, 64])
+@pytest.mark.parametrize("num", [2, 4, 7, 8])
+def test_uniform_draws_at_edge_ids_bitwise_equal_to_jax(num, stream):
+    seed = num * 100 + stream
+    rng = np.random.default_rng(seed)
+    pixel, sample = (np.array(v, np.uint32).ravel() for v in np.meshgrid(EDGE_IDS, EDGE_IDS))
+    pixel = np.concatenate([pixel, _u32(rng, 64)])
+    sample = np.concatenate([sample, _u32(rng, 64)])
+    js = jrng.make_ray_streams(jax.random.key(seed), jnp.asarray(pixel), jnp.asarray(sample), 64)
+    ts = trng.make_ray_streams(trng.make_key(seed), _t(pixel), _t(sample))
+    np.testing.assert_array_equal(ts.key.numpy(), _key_data(js.key))
+    np.testing.assert_array_equal(ts.pixel_seed.numpy(), np.asarray(js.pixel_seed).astype(np.int64))
+    got = trng.stream_uniforms(ts, stream, num)
+    assert got.shape == (len(pixel), num) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jrng.stream_uniforms(js, stream, num)))
+
+
+def test_cpu_draws_launch_no_kernel():
+    from cornelis_tpu_torch.ops import draws
+
+    before = dict(draws.LAUNCHES)
+    ts = trng.make_ray_streams(trng.make_key(3), _t(np.arange(64)), _t(np.arange(64) % 4))
+    for num in (2, 4, 8):
+        trng.stream_uniforms(ts, 1, num)
+    assert draws.LAUNCHES == before
+
+
+def _draw_args(**change):
+    keys = torch.zeros((4, 2), dtype=torch.int64)
+    args = dict(keys=keys, stream=1, num=4)
+    args.update(change)
+    return args
+
+
+@pytest.mark.parametrize("change,match", [
+    (dict(keys=torch.zeros((4, 2), dtype=torch.int32)), "int64"),
+    (dict(keys=torch.zeros((4, 3), dtype=torch.int64)), "shape"),
+    (dict(keys=torch.zeros(8, dtype=torch.int64)), "shape"),
+    (dict(keys=torch.zeros((2, 4), dtype=torch.int64).t()), "contiguous"),
+    (dict(num=0), "num"),
+    ({}, "one CUDA device"),
+])
+def test_draws_stream_uniforms_checks_its_arguments(change, match):
+    from cornelis_tpu_torch.ops import draws
+
+    with pytest.raises(ValueError, match=match):
+        draws.stream_uniforms(**_draw_args(**change))
+
+
+@pytest.mark.parametrize("change,match", [
+    (dict(root=torch.zeros(3, dtype=torch.int64)), "root must have shape"),
+    (dict(pixel_ids=torch.zeros((4, 1), dtype=torch.int64)), "pixel_ids must have shape"),
+    (dict(sample_idx=torch.zeros(5, dtype=torch.int64)), "sample_idx must have shape"),
+    (dict(sample_idx=torch.zeros(4, dtype=torch.int32)), "int64"),
+    (dict(pixel_ids=torch.zeros(8, dtype=torch.int64)[::2]), "contiguous"),
+    ({}, "one CUDA device"),
+])
+def test_draws_ray_streams_checks_its_arguments(change, match):
+    from cornelis_tpu_torch.ops import draws
+
+    args = dict(root=torch.zeros(2, dtype=torch.int64), pixel_ids=torch.zeros(4, dtype=torch.int64),
+                sample_idx=torch.zeros(4, dtype=torch.int64))
+    args.update(change)
+    with pytest.raises(ValueError, match=match):
+        draws.ray_streams(**args)

@@ -65,7 +65,10 @@ raises, so the exit code is not 0 and no result line is printed:
      light_table_dyn_reference's table), and in nee/sobol over
      sphere_grid(512)'s frame and a 128x128, 32-spp chunk of
      sphere_grid(2200) (its nee tables past the shared-memory cap), held
-     the same way; the table kernel's own entry, light_table_dyn, on
+     the same way; a nee/sobol session on sphere_grid(512) through
+     RenderSession.update_scene (K1 until the edit, then one K3 launch a
+     chunk and no table launch, the edited frame held the same way); the
+     table kernel's own entry, light_table_dyn, on
      Cornell; the two probes' command lines (K5 and K6, K4);
   5. times: each instantiation and K3 for one 32-spp chunk at 512x512
      (spp_total 256; median of 3 after a warm-up) against one run of its
@@ -1850,7 +1853,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from cornelis_tpu_torch import RenderOptions, RenderSession, RenderStatus
+    from cornelis_tpu_torch import RenderOptions, RenderSession, RenderStatus, SceneDescription
     from cornelis_tpu_torch.__main__ import main as cli_main
     from cornelis_tpu_torch.ops import build, lights, megakernel, warm
     from cornelis_tpu_torch.ops.dynamic import render_chunk_dynamic
@@ -2340,6 +2343,42 @@ def main() -> int:
             want = sum(render_chunk(dyn_tables, (k0, k1, root), o, **fed) for o in offsets) / spp
             hold_bitwise(f"  the frame against render_chunk fed the plain table", frame, want)
         del frame
+
+    # The same through the session, an animation's path: a nee session on
+    # sphere_grid(512) launches K1 until its first update_scene, and K3
+    # from then on, one launch a chunk and no table launch; the edited
+    # frame is bit for bit render_chunk's fed the plain table of the
+    # session's edited tables.
+    session = RenderSession(sphere_grid(512), RenderOptions(output=None, device="cuda",
+                                                            integrator="nee", sampler="sobol"))
+    chunks = len(range(0, opts.samples_aa, spp_chunk))
+    zero_counts()
+    session.render()
+    check((megakernel.LAUNCHES, megakernel.DYNAMIC_TABLE_LAUNCHES) == (chunks, 0),
+          f"a session never updated: {megakernel.LAUNCHES} launches, "
+          f"{megakernel.DYNAMIC_TABLE_LAUNCHES} of K3, for {chunks} chunks")
+    edit = json.loads(json.dumps(sphere_grid(512).to_dict()))
+    for sphere in edit["spheres"][:512]:
+        sphere["center"][1] += 0.5
+    edit["materials"][2]["emissive"] = [20.0, 20.0, 20.0]
+    zero_counts()
+    t0 = time.perf_counter()
+    session.update_scene(SceneDescription.from_dict(edit))
+    image = session.render().image
+    render_s = time.perf_counter() - t0
+    print(f"an updated sphere_grid(512) session, 512x512, {opts.samples_aa} spp: {render_s:.3f} s, "
+          f"{megakernel.LAUNCHES} launches ({megakernel.DYNAMIC_TABLE_LAUNCHES} of K3), "
+          f"{lights.LAUNCHES} table launches")
+    check((megakernel.LAUNCHES, megakernel.DYNAMIC_TABLE_LAUNCHES, lights.LAUNCHES)
+          == (chunks, chunks, 0), "an updated session launches K3 once a chunk, nothing else")
+    kw = dict(width=512, height=512, spp_chunk=spp_chunk, spp_total=opts.samples_aa,
+              max_depth=opts.max_depth, sampler="sobol", mode="nee",
+              lights=lights.light_table_dyn_reference(session.tables))
+    want = sum(render_chunk(session.tables, session.key, o, **kw)
+               for o in range(0, opts.samples_aa, spp_chunk)) / opts.samples_aa
+    hold_bitwise("  the updated session's frame against render_chunk fed the plain table",
+                 torch.from_numpy(image).cuda(), want)
+    del session, image, want
 
     # The table kernel's own entry point: light_table_dyn on Cornell.
     zero_counts()

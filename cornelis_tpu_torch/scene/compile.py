@@ -170,6 +170,32 @@ def compile_scene(descr: SceneDescription, device="cuda") -> SceneTables:
     Objects with material=None use index 0, the default material the
     builder always installs (Scene.cpp:16,36). The kernel reads material
     rows by id without a bounds check, so ids are checked here."""
+    return SceneTables(*(torch.from_numpy(a).to(device) for a in _host_tables(descr)))
+
+
+def update_tables(tables: SceneTables, descr: SceneDescription) -> int:
+    """Compile `descr` into the existing `tables`, in place, on their own
+    device: the same rows `compile_scene` makes, copied over the old ones
+    with `copy_`, so no table is allocated and every tensor keeps its
+    storage. Returns the bytes copied. The scene must keep the tables'
+    topology (as many spheres, planes, materials and SDFs): a ValueError
+    says which count differs, and nothing is copied."""
+    host = _host_tables(descr)
+    for name, old, new in zip(SceneTables._fields, tables, host):
+        if tuple(old.shape) != new.shape:
+            raise ValueError(
+                f"the scene's {name} table is {new.shape[0]} rows, the tables' "
+                f"{old.shape[0]}: an edit in place keeps the counts of spheres, planes, "
+                f"materials and SDFs"
+            )
+    for old, new in zip(tables, host):
+        old.copy_(torch.from_numpy(new))
+    return sum(a.nbytes for a in host)
+
+
+def _host_tables(descr: SceneDescription):
+    """The five tables of `descr` as float32 numpy arrays, in SceneTables'
+    order; material ids checked."""
     mats = descr.materials
     if not mats:
         raise ValueError("Scene must have at least the default material at index 0.")
@@ -220,16 +246,10 @@ def compile_scene(descr: SceneDescription, device="cuda") -> SceneTables:
     ]
 
     def table(rows, width):
-        a = np.asarray(rows, np.float32).reshape(len(rows), width)
-        return torch.from_numpy(a).to(device)
+        return np.asarray(rows, np.float32).reshape(len(rows), width)
 
-    return SceneTables(
-        camera=torch.from_numpy(np.asarray(camera, np.float32)).to(device),
-        spheres=table(spheres, 5),
-        planes=table(planes, 9),
-        materials=table(materials, 11),
-        sdfs=table(sdfs, SDF_COLS),
-    )
+    return (np.asarray(camera, np.float32), table(spheres, 5), table(planes, 9),
+            table(materials, 11), table(sdfs, SDF_COLS))
 
 
 def from_numpy_scene(scene, device="cuda") -> SceneTables:

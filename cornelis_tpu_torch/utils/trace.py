@@ -13,10 +13,14 @@ device synchronisation. On, a span records its name (every name is
 `ct.`-prefixed, apart from the benchmark's and the user's own ranges),
 its start and end in `time.time_ns()` nanoseconds, the id of its parent
 span, its request id and a few integer attributes (`set(key, value)`),
-and opens `torch.profiler.record_function(name)`, so that a profiler
-running around it shows the same range. torch's profiler stamps host
-events in Unix-epoch nanoseconds, the clock of `time.time_ns()`, so a
-kept span can be laid over the device trace's kernels and idle gaps.
+and opens the range `torch.profiler.record_function(name)` opens, so
+that a profiler running around it shows the same range. torch's profiler
+stamps host events in Unix-epoch nanoseconds, the clock of
+`time.time_ns()`, so a kept span can be laid over the device trace's
+kernels and idle gaps. The span reads the clock just before each of
+the range's two stamps, with no Python allocation in between: a garbage
+collection (whose callbacks may take milliseconds) starts only where
+Python allocates, so it never falls between a reading and its stamp.
 No span waits for the device: a span around asynchronous launches
 times their launch, and one that must include the device's work has a
 synchronising call inside it.
@@ -31,7 +35,9 @@ the current request, so the backward's checkpoint recompute hangs under
 
 The spans, and the quantity each is there to measure:
 `ct.session.setup` (the session's set-up) with `ct.scene.compile`,
-`ct.session.key` and `ct.session.lights`; `ct.session.dispatch`;
+`ct.session.key` and `ct.session.lights`; `ct.scene.update` (attrs
+`spheres`, `bytes`: `RenderSession.update_scene`'s edit of the tables on
+their device); `ct.session.dispatch`;
 `ct.film.fetch` (attr `bytes`; the one fetch of the image);
 `ct.film.tonemap`; `ct.png.deflate` (attrs `bytes_in`, `bytes_out`);
 `ct.frame` (render_scene's whole frame); `ct.inverse.step` with
@@ -44,6 +50,7 @@ The command line's `--profile-dir` switches them on in its trace.
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import threading
 import time
@@ -80,6 +87,16 @@ class _NoSpan:
 _NOOP = _NoSpan()
 
 
+@functools.lru_cache(maxsize=None)
+def _range_ops():
+    """The profiler's own enter and exit of a `record_function` range, as
+    the C++ operators that stamp the range's start and end. Called
+    directly, they allocate no Python object before the stamp, where
+    `record_function.__enter__` and `__exit__` make several."""
+    return (torch.ops.profiler._record_function_enter_new.default._op,
+            torch.ops.profiler._record_function_exit._RecordFunction._op)
+
+
 class Span:
     """One span; kept once it has closed."""
 
@@ -108,16 +125,21 @@ class Span:
         if not stack and parent is None:
             _owner = stack
         self.thread = threading.get_ident()
-        self._range = torch.profiler.record_function(self.name)
-        self._range.__enter__()
+        enter, _ = _range_ops()
+        # The clock is read next to the profiler's own stamp, with no
+        # Python allocation between them (an allocation may start a garbage
+        # collection and its callbacks), and before it: the operator lets
+        # go of the GIL, and taking it back may wait on another thread.
         self.start_ns = time.time_ns()
+        self._range = enter(self.name, None)
         stack.append(self)
         return self
 
     def __exit__(self, *exc):
         global _owner
+        _, leave = _range_ops()
         self.end_ns = time.time_ns()
-        self._range.__exit__(*exc)
+        leave(self._range)
         self._range = None
         stack = _local.stack
         stack.pop()

@@ -194,3 +194,35 @@ def test_spans_of_many_threads_are_all_kept_with_unique_ids():
         if s.name == "ct.inner":
             parent = by_id[s.parent]
             assert parent.name == "ct.outer" and parent.thread == s.thread
+
+
+def test_a_collection_falls_between_no_span_and_its_profiler_range():
+    """A garbage collection (slow here: a callback sleeps 10 ms, and every
+    allocation starts one) can run between two Python statements; none
+    runs between a span's clock reading and its range's stamp, so the
+    bar above holds through it."""
+    import gc
+
+    def slow(phase, info):
+        if phase == "start":
+            time.sleep(0.01)
+
+    threshold = gc.get_threshold()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with trace.collect() as spans:
+            gc.callbacks.append(slow)
+            gc.set_threshold(1)
+            try:
+                for _ in range(5):
+                    with trace.span("ct.outer"):
+                        with trace.span("ct.inner") as inner:
+                            inner.set("bytes", 1)
+            finally:
+                gc.set_threshold(*threshold)
+                gc.callbacks.remove(slow)
+    events = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                    if e.name() in ("ct.outer", "ct.inner"))
+    kept = sorted((s.start_ns, s.end_ns) for s in spans)
+    assert len(kept) == len(events) == 10
+    for (start, end), (p_start, p_end) in zip(kept, events):
+        assert abs(start - p_start) < 5e6 and abs(end - p_end) < 5e6

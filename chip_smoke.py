@@ -16,7 +16,11 @@ raises, so the exit code is not 0 and no result line is printed:
      and K6 and an (element, object) in K4, and their launch shapes; K4's
      "disc" design (probes/scan_designs.py: probes.cu with quad_root
      returning its disc) built beside them, whose SASS must be the
-     production kernel's but for the root (scan_designs.quad_root_difference);
+     production kernel's but for the root (scan_designs.quad_root_difference),
+     and K3's counting build (megakernel_nee.cu with CORNELIS_WALK_COUNTS,
+     whose sphere walk tallies its tests), which must not spill either;
+     K3's resident blocks an SM by the launch's own query on Cornell and
+     sphere_grid(512), at least K3_BLOCKS there;
      then the warm-up path (K2):
      warm_kernels() loads every library and megakernel instantiation and
      launches the zero fill, whose output must equal torch.zeros, with
@@ -34,6 +38,11 @@ raises, so the exit code is not 0 and no result line is printed:
      kernel, whose nee launch builds the light table in every block) on
      cornell_box and cornell_panel, its nee rays also bit for bit those
      of K1's nee instantiation fed light_table_dyn_reference's table;
+     K3's nee rays bit for bit K1's nee fed the plain table on
+     tests/torch_walk_scenes.py's cases, where K3 walks its sphere
+     hierarchy (sphere counts about one leaf, a tie met out of row order,
+     origins inside a sphere, grazing rays 1000 units off, degenerate
+     directions, sphere_grid(512) and (2200));
      the one-block table kernel bit for bit its plain version on those
      scenes, sphere_grid(64), (512) and (2200) and tables with a -0, an
      infinite and a NaN emission, ids off the material table and no
@@ -67,7 +76,12 @@ raises, so the exit code is not 0 and no result line is printed:
      sphere_grid(2200) (its nee tables past the shared-memory cap), held
      the same way; a nee/sobol session on sphere_grid(512) through
      RenderSession.update_scene (K1 until the edit, then one K3 launch a
-     chunk and no table launch, the edited frame held the same way); the
+     chunk and no table launch, the edited frame held the same way);
+     K3's counting build on Cornell, sphere_grid(512) (512x512, 32 spp) and
+     a 128x128 chunk of sphere_grid(2200): the sphere and box tests a
+     lane's and a warp's scan run, and the share of rows culled, its rays
+     bit for bit the production K3's, and at sphere_grid(512) a closest-hit
+     scan testing at most K3_SPHERE_SHARE of the rows; the
      table kernel's own entry, light_table_dyn, on
      Cornell; the two probes' command lines (K5 and K6, K4);
   5. times: each instantiation and K3 for one 32-spp chunk at 512x512
@@ -77,6 +91,8 @@ raises, so the exit code is not 0 and no result line is printed:
      marches in torch ops over 8.4M rays take long); the two outputs, and
      those of the last chunk (offset 224), held to the phase-3 bar ray by
      ray, and the dynamic nee rays bit for bit K1's fed the plain table;
+     K3's nee chunk at sphere_grid(512) beside K1's nee fed the plain table
+     (the linear scan), bit for bit;
      the table kernel by the profiler on Cornell and sphere_grid(512);
      the probes at their JAX shapes (K4, K5 and K6 beside the floor their
      SASS instructions set at the SM clock nvidia-smi reads; K4 by the
@@ -195,6 +211,11 @@ REGION_BIAS = 0.01
 MIN_REGIONS = 64
 # Doubling every emission doubles K3's nee image (tests/test_dynamic.py).
 DOUBLING_RTOL = 1e-5
+# K3 at sphere_grid(512): the resident blocks an SM its tables and sphere
+# hierarchy in shared memory must leave it, and the most sphere rows its
+# hierarchy may leave a closest-hit scan to test, on the mean.
+K3_BLOCKS = 4
+K3_SPHERE_SHARE = 0.10
 # The pinned firefly (tests/test_nee.py::TestFireflyPinned).
 FIREFLY_PIXEL, FIREFLY_SAMPLES, FIREFLY_SPP_TOTAL = 77580, (544, 576), 2048
 
@@ -435,6 +456,72 @@ def sass_listings(libraries: dict) -> dict:
             elif current and ins:
                 listings[current].append((int(ins.group(1), 16), ins.group(2)))
     return listings
+
+
+def build_walk_counts() -> dict:
+    """K3's counting build: csrc/megakernel_nee.cu with CORNELIS_WALK_COUNTS,
+    compiled with the nee library's flags into a library of its own under
+    _build/designs/, whose sphere walk tallies its tests (the production
+    build counts nothing). Its path and its ptxas report."""
+    from cornelis_tpu_torch.ops import build
+
+    out_dir = build.BUILD_DIR / "designs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / "libmegakernel_nee_counts.so"
+    flags = build.NVCC_FLAGS + build.EXTRA_FLAGS["megakernel_nee"] + ("-DCORNELIS_WALK_COUNTS",)
+    proc = subprocess.run([build._nvcc(), *flags, "-o", str(so), str(build.CSRC / "megakernel_nee.cu")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on K3's counting build:\n{proc.stderr}")
+    return {"so": str(so), "ptxas": ptxas_report({"counts": proc.stdout + proc.stderr})}
+
+
+# The counting build's tallies a scan kind (closest hit, shadow), in the
+# order of csrc/megakernel.cu's walk_counts: the lanes' scans and tests,
+# then the warps' (a warp scans once for its lanes that scan together, and
+# runs a test once for all its lanes that take it).
+WALK_FIELDS = ("scans", "sphere_tests", "box_tests", "warp_scans", "warp_sphere_tests",
+               "warp_box_tests")
+
+
+def walk_tallies(counting: dict, tables, key, size: int, spp: int):
+    """One nee/sobol chunk of K3 (size x size, spp samples, spp_total 256,
+    max_depth 64) through the counting build: per scan kind the lanes'
+    scans, their mean sphere and box tests, the share of sphere rows they
+    did not test, and the mean tests a warp ran a warp's scan (the linear
+    scan runs every row once a warp's scan); and the chunk's radiance,
+    which must be the production K3's."""
+    import ctypes
+
+    import torch
+
+    from cornelis_tpu_torch.ops import megakernel
+
+    lib = ctypes.CDLL(counting["so"])
+    entry = megakernel._set_argtypes(lib.cornelis_megakernel_nee_dynamic, False)
+    buf = (ctypes.c_ulonglong * 12)()
+    check(lib.cornelis_walk_counts(buf) == 0, "the counting build's tallies failed")
+    k0, k1, root = key
+    out = torch.empty((size * size * spp, 3), dtype=torch.float32, device="cuda")
+    megakernel._launch_into(out, tables, k0, k1, size, size, spp, 0, 64, root=root,
+                            sampler="sobol", mode="nee", index_bits=megakernel.index_bits_for(256),
+                            lights=None, dynamic_table=True, entry=entry)
+    torch.cuda.synchronize()
+    check(lib.cornelis_walk_counts(buf) == 0, "the counting build's tallies failed")
+    n = tables.spheres.shape[0]
+    tallies = {}
+    for k, kind in enumerate(("closest", "shadow")):
+        c = dict(zip(WALK_FIELDS, buf[6 * k:6 * k + 6]))
+        scans, warp_scans = max(c["scans"], 1), max(c["warp_scans"], 1)
+        tallies[kind] = {
+            "scans": c["scans"], "warp_scans": c["warp_scans"],
+            "sphere_tests_a_scan": c["sphere_tests"] / scans,
+            "box_tests_a_scan": c["box_tests"] / scans,
+            "culled_share": 1.0 - c["sphere_tests"] / scans / n if n else 0.0,
+            "warp_sphere_tests_a_warp_scan": c["warp_sphere_tests"] / warp_scans,
+            "warp_box_tests_a_warp_scan": c["warp_box_tests"] / warp_scans,
+        }
+    return tallies, out
 
 
 def innermost_loop(listing) -> int:
@@ -1890,13 +1977,16 @@ def main() -> int:
 
     phase("2. build (one nvcc per source, in parallel)")
     t0 = time.perf_counter()
-    # K4's "disc" designs build beside the libraries.
-    with ThreadPoolExecutor(len(QUAD)) as pool:
+    # K4's "disc" designs and K3's counting build build beside the libraries.
+    with ThreadPoolExecutor(len(QUAD) + 1) as pool:
         disc_builds = {name: pool.submit(scan_designs.build_design, (dtype, "disc"))
                        for dtype, name in QUAD.items()}
+        counting_build = pool.submit(build_walk_counts)
         built = build.build_all(force=True)
         disc_built = {name: f.result() for name, f in disc_builds.items()}
-    print(f"built {len(built)} libraries and K4's 2 disc designs in {time.perf_counter() - t0:.1f} s: "
+        counting = counting_build.result()
+    print(f"built {len(built)} libraries, K4's 2 disc designs and K3's counting build in "
+          f"{time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"{os.path.relpath(so, REPO)} ({s:.1f} s)" for so, s in built.values()))
     ptxas = ptxas_report(build.BUILD_LOGS)
     listings = sass_listings(built)
@@ -1910,6 +2000,10 @@ def main() -> int:
                if name.startswith(("megakernel", STAGE, BAKED, DYNAMIC, "quad_probe",
                                    DRAWS, RAY_STREAMS)) and spill != 0}
     print(f"megakernel, probe and draws kernels that spill: {spilled or 'none'}")
+    for name, (regs, stack, spill) in sorted(counting["ptxas"].items()):
+        print(f"  K3's counting build, {name}: {regs} registers, {stack} B stack, {spill} B spilled")
+        if spill:
+            spilled[f"{name}, K3's counting build"] = spill
     scan_shapes = {BAKED: scene_table.launch_shape("baked"),
                    DYNAMIC: scene_table.launch_shape("dynamic")}
     per_sphere = sass_per_sphere(listings, scan_shapes)
@@ -1973,6 +2067,20 @@ def main() -> int:
         records[name].update(sass_per_step=per_step.get(name), launch=shape,
                              sass_root_only=name in root_difference and not root_difference[name])
     record(B6, CSRC + "megakernel.cu", B6_TPU, kernel_name("megakernel", "path", "uniform") + " ids")
+
+    # K3's residency by the launch's own query: its tables and sphere
+    # hierarchy in shared memory must leave sphere_grid(512) 4 blocks an SM.
+    for sampler in ("uniform", "sobol"):
+        rec = records[kernel_name("dynamic", "nee", sampler)]
+        for scene_name, desc in (("cornell_box", cornell_box()), ("sphere_grid(512)", sphere_grid(512))):
+            blocks, smem = megakernel.dynamic_occupancy(compile_scene(desc, device="cuda"), sampler)
+            rec.setdefault("blocks_per_sm", {})[scene_name] = blocks
+            rec.setdefault("smem_bytes", {})[scene_name] = smem
+            print(f"  {kernel_name('megakernel_dyn', 'nee', sampler)} on {scene_name}: {blocks} "
+                  f"blocks an SM, {smem} B of shared memory a block")
+        check(rec["blocks_per_sm"]["sphere_grid(512)"] >= K3_BLOCKS,
+              f"K3 holds {rec['blocks_per_sm']['sphere_grid(512)']} blocks an SM at "
+              f"sphere_grid(512), under {K3_BLOCKS}")
 
     # K2's main path: the warm-up before anything is timed.
     warm.LAUNCHES = 0
@@ -2096,6 +2204,28 @@ def main() -> int:
         records[TABLE]["fracs"].append(min(fracs))
         records[TABLE]["errs"].append(0.0)
 
+    # K3's sphere hierarchy bit for bit the linear scan: K3's nee rays
+    # against K1's nee fed the plain table on tests/torch_walk_scenes.py's
+    # cases (sphere counts about one leaf, a tie met out of row order,
+    # origins inside a sphere, grazing rays 1000 units off, degenerate
+    # directions, tables past the shared-memory cap).
+    from torch_walk_scenes import CASE_NAMES as WALK_CASES
+    from torch_walk_scenes import walk_case
+
+    for case in WALK_CASES:
+        tables = walk_case(case, "cuda")
+        size = 32 if case == "sphere_grid(2200)" else SMOKE["width"]
+        args = (tables, k0, k1, size, size, SMOKE["spp"], 0, SMOKE["max_depth"])
+        for sampler in ("uniform", "sobol"):
+            name = kernel_name("dynamic", "nee", sampler)
+            kern = megakernel.render_rays(*args, **variant_args(tables, "nee", sampler, True,
+                                                                smoke_bits))
+            want = megakernel.render_rays(*args, **variant_args(tables, "nee", sampler, True,
+                                                                smoke_bits, plain=True))
+            records[name]["fracs"].append(hold_bitwise(
+                f"  {name} on the walk case {case} against K1's nee fed the plain table", kern, want))
+            records[name]["errs"].append(0.0)
+
     # K3's point: a scene edit in place re-renders with no rebuild.
     tables = compile_scene(cornell_box(), device="cuda")
     kw = dict(width=64, height=64, spp_chunk=SMOKE["spp"], spp_total=SMOKE["spp"],
@@ -2203,6 +2333,7 @@ def main() -> int:
         megakernel.LAUNCHES = 0
         megakernel.SDF_LAUNCHES = 0
         megakernel.DYNAMIC_TABLE_LAUNCHES = 0
+        megakernel.HIERARCHY_LAUNCHES = 0
         lights.LAUNCHES = 0
         scene_table.LAUNCHES.update(baked=0, dynamic=0)
         bf16_probe.LAUNCHES.update(float32=0, bfloat16=0)
@@ -2326,17 +2457,18 @@ def main() -> int:
         render_s = time.perf_counter() - t0
         chunks = len(offsets)
         launches, table_launches = megakernel.LAUNCHES, lights.LAUNCHES
-        built = megakernel.DYNAMIC_TABLE_LAUNCHES
+        built, walked = megakernel.DYNAMIC_TABLE_LAUNCHES, megakernel.HIERARCHY_LAUNCHES
         if scene_name == "cornell_box":
             records[name]["launches"] = launches
         print(f"render_chunk_dynamic {mode}/{sampler} on {scene_name}, {size}x{size}, {spp} spp: "
               f"{chunks} chunks in {render_s:.3f} s, {launches} launches ({built} building the "
-              f"table), {table_launches} table launches, frame mean "
-              f"{[round(v, 4) for v in frame.mean((0, 1)).tolist()]}")
+              f"table, {walked} walking the sphere hierarchy), {table_launches} table launches, "
+              f"frame mean {[round(v, 4) for v in frame.mean((0, 1)).tolist()]}")
         check(launches == chunks and table_launches == 0
-              and built == (chunks if mode == "nee" else 0),
-              f"{launches} launches, {built} building the table and {table_launches} table "
-              f"launches for {chunks} chunks")
+              and built == (chunks if mode == "nee" else 0)
+              and walked == (chunks if mode == "nee" and scene_name != "cornell_box" else 0),
+              f"{launches} launches, {built} building the table, {walked} walking the hierarchy "
+              f"and {table_launches} table launches for {chunks} chunks")
         check(bool(torch.isfinite(frame).all()) and bool((frame >= 0).all()), "bad dynamic frame")
         if mode == "nee":
             fed = dict(kw, lights=lights.light_table_dyn_reference(dyn_tables))
@@ -2379,6 +2511,40 @@ def main() -> int:
     hold_bitwise("  the updated session's frame against render_chunk fed the plain table",
                  torch.from_numpy(image).cuda(), want)
     del session, image, want
+
+    # K3's counting build (the production source with CORNELIS_WALK_COUNTS):
+    # the tests a scan of its sphere walk, a lane's and a warp's, on Cornell
+    # (one leaf: the linear scan) and sphere_grid(512) at the main chunk
+    # (512x512, 32 spp) and a 128x128 chunk of sphere_grid(2200); its rays
+    # must be the production K3's, and at sphere_grid(512) a closest-hit
+    # scan may test at most K3_SPHERE_SHARE of the rows on the mean.
+    walk_record = {}
+    for scene_name, desc, size in (("cornell_box", cornell_box(), 512),
+                                   ("sphere_grid(512)", sphere_grid(512), 512),
+                                   ("sphere_grid(2200)", sphere_grid(2200), 128)):
+        walk_tables = compile_scene(desc, device="cuda")
+        tallies, counted = walk_tallies(counting, walk_tables, (k0, k1, root), size, spp_chunk)
+        production = megakernel.render_rays(walk_tables, k0, k1, size, size, spp_chunk, 0,
+                                            opts.max_depth, root=root, sampler="sobol", mode="nee",
+                                            index_bits=megakernel.index_bits_for(opts.samples_aa),
+                                            dynamic_table=True)
+        hold_bitwise(f"  K3's counting build on {scene_name} against the production K3", counted,
+                     production)
+        n_spheres = walk_tables.spheres.shape[0]
+        for kind, t in tallies.items():
+            print(f"K3's sphere walk on {scene_name} ({n_spheres} spheres, {size}x{size}, "
+                  f"{spp_chunk} spp), {kind} scans: {t['scans']}; a lane's scan tests "
+                  f"{t['sphere_tests_a_scan']:.3f} spheres and {t['box_tests_a_scan']:.3f} boxes "
+                  f"(culled share of the rows {t['culled_share']:.4f}); a warp's scan runs "
+                  f"{t['warp_sphere_tests_a_warp_scan']:.3f} sphere and "
+                  f"{t['warp_box_tests_a_warp_scan']:.3f} box tests ({t['warp_scans']} warp scans)")
+        walk_record[scene_name] = tallies
+        del counted, production
+    share = walk_record["sphere_grid(512)"]["closest"]["sphere_tests_a_scan"] / 513
+    check(share <= K3_SPHERE_SHARE,
+          f"K3's closest-hit scans test {share:.2%} of sphere_grid(512)'s rows, over "
+          f"{K3_SPHERE_SHARE:.0%}")
+    records[kernel_name("dynamic", "nee", "sobol")]["walk"] = walk_record
 
     # The table kernel's own entry point: light_table_dyn on Cornell.
     zero_counts()
@@ -2437,6 +2603,26 @@ def main() -> int:
                     hold_bitwise(f"  {name} offset {offset} against K1's nee fed the plain table",
                                  kern, megakernel.render_rays(*args, offset, 64, **fed))
                 del kern, ref
+
+    # K3 at sphere_grid(512), the dynamic cell's scene, where it walks its
+    # sphere hierarchy: its chunk beside K1's nee fed the plain table, the
+    # linear scan over the same rays (bit for bit the same).
+    grid5 = compile_scene(sphere_grid(512), device="cuda")
+    for sampler in ("uniform", "sobol"):
+        name = kernel_name("dynamic", "nee", sampler)
+        args = (grid5, k0, k1, 512, 512, 32, 0, 64)
+        fed = variant_args(grid5, "nee", sampler, True, bits, plain=True)
+        kernel_s, kern = timed(lambda: megakernel.render_rays(
+            *args, **variant_args(grid5, "nee", sampler, True, bits)))
+        linear_s, want = timed(lambda: megakernel.render_rays(*args, **fed))
+        rec = records[name]
+        rec["ms_sphere_grid_512"], rec["linear_ms_sphere_grid_512"] = kernel_s * 1e3, linear_s * 1e3
+        print(f"{name} on sphere_grid(512), 512x512, 32 spp: kernel {kernel_s * 1e3:.2f} ms, K1's "
+              f"nee fed the plain table (the linear scan) {linear_s * 1e3:.2f} ms on {card}")
+        rec["fracs"].append(hold_bitwise(f"  {name} on sphere_grid(512) against K1's nee fed the "
+                                         "plain table", kern, want))
+        rec["errs"].append(0.0)
+        del kern, want
 
     # The table kernel's own entry: its device time by the profiler, the
     # host clock around a call and a synchronize, and the plain version's,

@@ -8,7 +8,9 @@
 // "sobol", and cornelis_tpu/ops/pallas_dynamic.py::_make_kernel_dyn, whose
 // bounce loop is the same and whose light table its nee instantiations
 // (megakernel_dyn) build in their prologue, from the tables each block has
-// staged, as the TPU kernel built it in every grid step (light_table.cuh).
+// staged, as the TPU kernel built it in every grid step (light_table.cuh);
+// beside it they build a hierarchy of boxes over the spheres, which their
+// scans walk (see "K3's sphere hierarchy" below).
 // Mode, sampler and SDF support are template parameters; the SDF
 // instantiations are launched only for tables with SDF rows. This file
 // instantiates mode "path" (entry point cornelis_megakernel);
@@ -92,6 +94,52 @@
 // nee instantiations' 86-95 registers (5 blocks, 20 warps per SM); the
 // bound's work is FP32 issue at 67 TFLOP/s. A conservative bounding volume
 // per SDF and per-warp march compaction are later work.
+//
+// K3's sphere hierarchy. The dynamic nee instantiations (megakernel_dyn)
+// scan the spheres through two fixed levels of boxes instead of row by
+// row: the spheres in the Morton order of their centres (10 bits an axis
+// in the centres' bounds, ties by row), leaves of walk::LEAF = 8 spheres,
+// top nodes of walk::FAN = 8 leaves. A closest-hit or shadow scan tests the
+// top boxes, the leaf boxes of each top node it enters and the spheres of
+// each leaf it enters, a box only while the ray reaches it before the best
+// t so far (closest hit) or t_max (shadow); a warp runs a node's work once
+// for all its lanes that enter it. Every sphere test is sphere_t as the
+// linear scan runs it; the winner is the least (t, row), as the scan in
+// row order finds it, and Hit.prim its row, so K3's rays are bit for bit
+// the linear scan's (K1's nee fed the same light table, the tests'
+// oracle). A scene of at most 8 spheres is one leaf: the linear scan, no
+// box and no build.
+//
+// Where it is built: in each block's prologue, from the tables the block
+// has just staged, before the light table (its sort's scratch is the
+// table's rows); past SMEM_CAP by stage_tables_dyn's last block, from the
+// tables' own rows, into device memory after the layout. A session edits
+// the tables in place every frame (RenderSession.update_scene), so a
+// hierarchy built anywhere else could lag an edit; built in the launch, a
+// frame is always walked on its own tables, for a sort of the block's
+// (each row's rank in (code, row) order, n compares a row) and no launch.
+//
+// Why the boxes cull nothing that could win: sphere_t rounds. Its
+// discriminant is off by up to about 20 ulp of |o - c|^2, so a ray whose
+// exact line misses a sphere can still get a finite t, at a point up to
+// 1.2e-3 |o - c| outside it (the worst over 4e7 grazing rays at 1 to 3000
+// units was 6.7e-4). So the box test tests a cone about the ray, its
+// radius growing by walk::CONE |d|_1 = 2^-8 |d|_1 a unit of t (3.3x that
+// bound), against boxes padded by 2^-8 of each sphere's radius (|o - c| <=
+// t |d| + r) and 2^-20 of their coordinates (their corners' own
+// rounding); per axis its bounds on t come from the cone's two face
+// slopes, and an axis the ray crosses slower than the cone widens bounds
+// nothing. Any t that sphere_t returns thus lies in the cone's interval
+// in each box around the sphere, and a box is entered while that
+// interval starts at or before the limit: a tie in t is still tested.
+// The walk never culls on tmin; a degenerate direction tests no sphere,
+// for which sphere_t returns +inf.
+//
+// What bounds K3 after it (PERF.md): at sphere_grid(512) a lane's
+// closest-hit scan tests about 9 spheres and 15 boxes, a warp's about 45
+// and 27, against 513 rows; the two loops over the 514-row light table
+// (sample_light's pick and emission_pickup) and the bounce's fixed work
+// now outweigh the scans.
 //
 // The SDF arithmetic rounds every operation on its own (__fmul_rn,
 // __fadd_rn, __fsqrt_rn, __fdiv_rn), whatever -fmad says: the tetrahedron
@@ -373,19 +421,150 @@ struct StagedScene {
   }
 };
 
+// ---- K3's sphere hierarchy --------------------------------------------------
+
+// Two fixed levels of boxes over the spheres in the Morton order of their
+// centres: leaves of LEAF spheres, top nodes of FAN leaves. Its region
+// follows the spheres' rows in the layout: the top boxes, the leaf boxes
+// (each 8 floats: lo xyz, 0, hi xyz, 0), then `perm`, the original row of
+// each sorted position. A scene of at most LEAF spheres is one leaf: no
+// region, and the walk is the linear scan.
+namespace walk {
+
+constexpr int LEAF = 8, FAN = 8;
+// The cone's slack per unit of distance along the ray, over |d| (2^-8,
+// 3.3x sphere_t's worst rounding, 1.2e-3 |o - c|), and each sphere box's
+// padding: that share of its radius, and 2^-20 of its coordinates (the
+// rounding of the box's own corners).
+constexpr float CONE = 1.0f / 256.0f;
+constexpr float PAD_R = 1.0f / 256.0f;
+constexpr float PAD_POS = 1.0f / 1048576.0f;
+
+__host__ __device__ __forceinline__ int leaves(int n) { return (n + LEAF - 1) / LEAF; }
+__host__ __device__ __forceinline__ int tops(int n) { return (leaves(n) + FAN - 1) / FAN; }
+__host__ __device__ __forceinline__ bool flat(int n) { return n <= LEAF; }
+// Floats of the region for n spheres.
+__host__ __device__ __forceinline__ int floats(int n) {
+  return flat(n) ? 0 : 8 * (tops(n) + leaves(n)) + ((n + 3) & ~3);
+}
+// Where the region starts in the layout: right after the spheres' rows.
+__host__ __device__ __forceinline__ int region_at(const Launch& L) {
+  return L.spheres.at + ((SPHERE_COLS * L.spheres.n + 3) & ~3);
+}
+
+// 10 bits spread to every third of 30.
+__device__ __forceinline__ uint32_t spread(uint32_t x) {
+  x = (x | (x << 16)) & 0x030000FFu;
+  x = (x | (x << 8)) & 0x0300F00Fu;
+  x = (x | (x << 4)) & 0x030C30C3u;
+  return (x | (x << 2)) & 0x09249249u;
+}
+
+// Builds the region at `dst` from the n spheres of `s` (anything with
+// light_table::Rows's sphere(i)), thread `tid` of the block's `threads`
+// (every thread of the block calls it: it holds block barriers), with
+// `codes` (n words) as scratch. Each sphere's Morton code quantizes its
+// centre to 10 bits an axis in the centres' bounds; its sorted position is
+// the count of spheres before it in (code, row) order, so the order is a
+// total one and the same in every block. The region is the block's to
+// read after its next barrier.
+template <class Spheres>
+__device__ __forceinline__ void build(const Spheres& s, int n, float* dst, uint32_t* codes, int tid,
+                                      int threads) {
+  if (flat(n)) return;
+  const int nl = leaves(n), nt = tops(n);
+  float lo[3] = {INFINITY, INFINITY, INFINITY}, hi[3] = {-INFINITY, -INFINITY, -INFINITY};
+  for (int j = 0; j < n; ++j) {
+    const float4 c = s.sphere(j);
+    const float cs[3] = {c.x, c.y, c.z};
+#pragma unroll
+    for (int a = 0; a < 3; ++a) lo[a] = fminf(lo[a], cs[a]), hi[a] = fmaxf(hi[a], cs[a]);
+  }
+  float scale[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float extent = hi[a] - lo[a];
+    scale[a] = extent > 0.0f && extent < INFINITY ? 1023.0f / extent : 0.0f;
+  }
+  for (int i = tid; i < n; i += threads) {
+    const float4 c = s.sphere(i);
+    const float cs[3] = {c.x, c.y, c.z};
+    uint32_t q[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)  // a NaN centre lands at 0
+      q[a] = (uint32_t)fminf(fmaxf((cs[a] - lo[a]) * scale[a], 0.0f), 1023.0f);
+    codes[i] = (spread(q[0]) << 2) | (spread(q[1]) << 1) | spread(q[2]);
+  }
+  __syncthreads();
+  int* perm = reinterpret_cast<int*>(dst + 8 * (nt + nl));
+  for (int i = tid; i < n; i += threads) {
+    const uint32_t ci = codes[i];
+    int rank = 0;
+    for (int j = 0; j < n; ++j) {
+      const uint32_t cj = codes[j];
+      rank += (cj < ci || (cj == ci && j < i)) ? 1 : 0;
+    }
+    perm[rank] = i;
+  }
+  __syncthreads();
+  // Leaf boxes: each sphere's box padded so that no rounded hit of
+  // sphere_t lies outside it but for the cone's slack (see the note at
+  // the head of this file); a NaN row adds nothing, and cannot hit.
+  for (int l = tid; l < nl; l += threads) {
+    float blo[3] = {INFINITY, INFINITY, INFINITY}, bhi[3] = {-INFINITY, -INFINITY, -INFINITY};
+    const int end = min(n, (l + 1) * LEAF);
+    for (int i = l * LEAF; i < end; ++i) {
+      const float4 c = s.sphere(perm[i]);
+      const float r = fabsf(c.w);
+      const float big = fmaxf(fmaxf(fabsf(c.x), fabsf(c.y)), fmaxf(fabsf(c.z), r));
+      const float e = r + r * PAD_R + big * PAD_POS;
+      const float cs[3] = {c.x, c.y, c.z};
+#pragma unroll
+      for (int a = 0; a < 3; ++a) blo[a] = fminf(blo[a], cs[a] - e), bhi[a] = fmaxf(bhi[a], cs[a] + e);
+    }
+    float4* box = reinterpret_cast<float4*>(dst + 8 * (nt + l));
+    box[0] = make_float4(blo[0], blo[1], blo[2], 0.0f);
+    box[1] = make_float4(bhi[0], bhi[1], bhi[2], 0.0f);
+  }
+  __syncthreads();
+  for (int c = tid; c < nt; c += threads) {
+    float4 tlo = make_float4(INFINITY, INFINITY, INFINITY, 0.0f);
+    float4 thi = make_float4(-INFINITY, -INFINITY, -INFINITY, 0.0f);
+    const int end = min(nl, (c + 1) * FAN);
+    for (int l = c * FAN; l < end; ++l) {
+      const float4* box = reinterpret_cast<const float4*>(dst + 8 * (nt + l));
+      tlo = make_float4(fminf(tlo.x, box[0].x), fminf(tlo.y, box[0].y), fminf(tlo.z, box[0].z), 0.0f);
+      thi = make_float4(fmaxf(thi.x, box[1].x), fmaxf(thi.y, box[1].y), fmaxf(thi.z, box[1].z), 0.0f);
+    }
+    float4* box = reinterpret_cast<float4*>(dst + 8 * c);
+    box[0] = tlo;
+    box[1] = thi;
+  }
+}
+
+}  // namespace walk
+
 // Stages the expanded layout in device memory (L.tables) for a launch whose
 // tables are larger than SMEM_CAP. DYN: block 0 also builds the light
-// table and clamp base there, from the tables' own rows, while the other
-// blocks expand the rest; the megakernel that follows on the stream reads
-// them.
+// table and clamp base there, and the last block the sphere hierarchy,
+// each from the tables' own rows, while the other blocks expand the rest;
+// the megakernel that follows on the stream reads them. The hierarchy's
+// scratch lies past the layout's end.
 template <bool NEE, bool DYN>
 __device__ __forceinline__ void stage(const Launch& L) {
   float* dst = const_cast<float*>(L.tables);
   expand<NEE, DYN>(dst, L, blockIdx.x * BLOCK + threadIdx.x, gridDim.x * BLOCK);
-  if (DYN && blockIdx.x == 0) {
+  if (DYN) {
     const light_table::Rows scene{L.spheres.rows, L.spheres.n,   L.planes.rows,
                                   L.planes.n,     L.materials.rows, L.materials.n};
-    light_table::build(scene, dst + L.lights.at, dst + 12, threadIdx.x, BLOCK);
+    if (blockIdx.x == 0)
+      light_table::build(scene, dst + L.lights.at, dst + 12, threadIdx.x, BLOCK);
+    if (blockIdx.x == gridDim.x - 1) {
+      float* region = dst + walk::region_at(L);
+      walk::build(scene, L.spheres.n, region,
+                  reinterpret_cast<uint32_t*>(region + walk::floats(L.spheres.n)), threadIdx.x,
+                  BLOCK);
+    }
   }
 }
 
@@ -746,6 +925,123 @@ __device__ __forceinline__ V3 sdf_normal(const Launch& L, int k, int kind, V3 p,
             row3_rn(q2.w, q3.z, q4.y, g));
 }
 
+// ---- K3's walk of the sphere hierarchy --------------------------------------
+
+// What the walk tested, in the counting build (CORNELIS_WALK_COUNTS) only:
+// per lane, and per warp (the warp runs a test once for all its lanes that
+// take it). The production build counts nothing.
+#ifdef CORNELIS_WALK_COUNTS
+// Per scan kind (0 closest hit, 1 shadow): the lanes' scans, sphere tests
+// and box tests, then the warps' scans, sphere tests and box tests.
+__device__ unsigned long long walk_counts[12];
+
+struct Tally {
+  unsigned spheres = 0, boxes = 0, warp_spheres = 0, warp_boxes = 0;
+  __device__ __forceinline__ static bool first_lane() {
+    return (int)(threadIdx.x & 31u) == __ffs(__activemask()) - 1;
+  }
+  __device__ __forceinline__ void sphere() { ++spheres, warp_spheres += first_lane(); }
+  __device__ __forceinline__ void box() { ++boxes, warp_boxes += first_lane(); }
+  __device__ __forceinline__ void flush(int kind) {
+    const unsigned mask = __activemask();
+    const bool leader = first_lane();
+    const unsigned v[6] = {1u, spheres, boxes, leader ? 1u : 0u, warp_spheres, warp_boxes};
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      const unsigned sum = __reduce_add_sync(mask, v[i]);
+      if (leader) atomicAdd(&walk_counts[6 * kind + i], (unsigned long long)sum);
+    }
+  }
+};
+#else
+struct Tally {
+  __device__ __forceinline__ void sphere() {}
+  __device__ __forceinline__ void box() {}
+  __device__ __forceinline__ void flush(int) {}
+};
+#endif
+
+// A ray as the walk's box test sees it: a cone about o + t d whose radius
+// grows by CONE |d|_1 a unit of t. Per axis, the reciprocals of its two
+// faces' slopes d_i + s and d_i - s, NaN where |d_i| <= s (the axis then
+// bounds nothing: the cone widens along it faster than the ray moves).
+struct Cone {
+  V3 o;
+  float a[3], b[3];
+  bool pos[3];
+};
+
+__device__ __forceinline__ Cone cone(V3 o, V3 d) {
+  Cone k;
+  k.o = o;
+  const float s = walk::CONE * (fabsf(d.x) + fabsf(d.y) + fabsf(d.z));
+  const float ds[3] = {d.x, d.y, d.z};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const bool bounds = ds[i] > s || ds[i] < -s;
+    k.a[i] = bounds ? __frcp_rn(ds[i] + s) : __int_as_float(0x7fc00000);
+    k.b[i] = bounds ? __frcp_rn(ds[i] - s) : __int_as_float(0x7fc00000);
+    k.pos[i] = ds[i] > 0.0f;
+  }
+  return k;
+}
+
+// Whether the cone meets the box at some t in [0, limit]: per axis the
+// lower face gives t (d_i + s) >= lo_i - o_i and the upper t (d_i - s) <=
+// hi_i - o_i, a lower and an upper bound on t by the sign of d_i. fmaxf
+// and fminf drop a NaN bound, so `near` and `far` are never NaN.
+__device__ __forceinline__ bool enters(const float* box, const Cone& k, float limit) {
+  const float4 lo = ld4(box), hi = ld4(box + 4);
+  const float los[3] = {lo.x, lo.y, lo.z}, his[3] = {hi.x, hi.y, hi.z};
+  const float os[3] = {k.o.x, k.o.y, k.o.z};
+  float near = 0.0f, far = INFINITY;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float x = (los[i] - os[i]) * k.a[i], y = (his[i] - os[i]) * k.b[i];
+    near = fmaxf(near, k.pos[i] ? x : y);
+    far = fminf(far, k.pos[i] ? y : x);
+  }
+  return near <= far && near <= limit;
+}
+
+// Calls visit(s) on the spheres s whose boxes the ray (o, d) enters below
+// `limit`, a bound the visits may lower (the best t so far), until a visit
+// returns true; returns whether one did. The top boxes, each top node's
+// leaf boxes and each leaf's spheres are taken in the region's order; a
+// warp runs a node's work once for all its lanes that enter it. A scene of
+// one leaf visits every sphere in row order, with no box test.
+template <class Visit>
+__device__ __forceinline__ bool walk_spheres(const Launch& L, V3 o, V3 d, const float& limit,
+                                             Tally& tally, Visit visit) {
+  const int n = L.spheres.n;
+  if (walk::flat(n)) {
+    for (int s = 0; s < n; ++s) {
+      tally.sphere();
+      if (visit(s)) return true;
+    }
+    return false;
+  }
+  const int nl = walk::leaves(n), nt = walk::tops(n);
+  const float* region = tables(L) + walk::region_at(L);
+  const int* perm = reinterpret_cast<const int*>(region + 8 * (nt + nl));
+  const Cone k = cone(o, d);
+  for (int c = 0; c < nt; ++c) {
+    tally.box();
+    if (!enters(region + 8 * c, k, limit)) continue;
+    const int l_end = min(nl, (c + 1) * walk::FAN);
+    for (int l = c * walk::FAN; l < l_end; ++l) {
+      tally.box();
+      if (!enters(region + 8 * (nt + l), k, limit)) continue;
+      const int i_end = min(n, (l + 1) * walk::LEAF);
+      for (int i = l * walk::LEAF; i < i_end; ++i) {
+        tally.sphere();
+        if (visit(perm[i])) return true;
+      }
+    }
+  }
+  return false;
+}
+
 struct Hit {
   float t;
   V3 p, n;
@@ -759,19 +1055,37 @@ struct Hit {
 // so far. Updates are on a strict best_t > t, so the first object wins a
 // tie, a sphere wins a tie against a plane and a plane against an SDF. The
 // scans carry only the best t and the winner; its point, normal and
-// material are taken once, after them, by the same expressions.
-template <bool SDF>
+// material are taken once, after them, by the same expressions. DYN: the
+// spheres are walked through K3's hierarchy, which tests them out of row
+// order, so a tie in t goes to the lower row explicitly: the winner is the
+// least (t, row), as the scan in row order finds it.
+template <bool SDF, bool DYN>
 __device__ __forceinline__ Hit intersect(const Launch& L, V3 o, V3 d) {
   const RayPre pre = ray_pre(o, d);
   const int n_sp = L.spheres.n + L.planes.n;  // an SDF k wins as n_sp + k
 
   float best_t = INFINITY;
   int best = -1;
-  for (int s = 0; s < L.spheres.n; ++s) {
-    const float t = sphere_t(sphere_cr(L, s), o, d, pre);
-    if (best_t > t) {
-      best_t = t;
-      best = s;
+  if constexpr (DYN) {
+    Tally tally;
+    if (!pre.deg) {  // a degenerate ray hits no sphere
+      walk_spheres(L, o, d, best_t, tally, [&](int s) {
+        const float t = sphere_t(sphere_cr(L, s), o, d, pre);
+        if (best_t > t || (best_t == t && s < best)) {
+          best_t = t;
+          best = s;
+        }
+        return false;
+      });
+    }
+    tally.flush(0);
+  } else {
+    for (int s = 0; s < L.spheres.n; ++s) {
+      const float t = sphere_t(sphere_cr(L, s), o, d, pre);
+      if (best_t > t) {
+        best_t = t;
+        best = s;
+      }
     }
   }
   for (int j = 0; j < L.planes.n; ++j) {
@@ -826,12 +1140,21 @@ __device__ __forceinline__ Hit intersect(const Launch& L, V3 o, V3 d) {
 }
 
 // pallas_integrator.py::_occluded_const: any hit closer than t_max; each
-// SDF march stops at t_max.
-template <bool SDF>
+// SDF march stops at t_max. DYN: the spheres through K3's hierarchy.
+template <bool SDF, bool DYN>
 __device__ __forceinline__ bool occluded(const Launch& L, V3 o, V3 d, float t_max) {
   const RayPre pre = ray_pre(o, d);
-  for (int s = 0; s < L.spheres.n; ++s) {
-    if (sphere_t(sphere_cr(L, s), o, d, pre) < t_max) return true;
+  if constexpr (DYN) {
+    Tally tally;
+    const bool blocked = !pre.deg && walk_spheres(L, o, d, t_max, tally, [&](int s) {
+      return sphere_t(sphere_cr(L, s), o, d, pre) < t_max;
+    });
+    tally.flush(1);
+    if (blocked) return true;
+  } else {
+    for (int s = 0; s < L.spheres.n; ++s) {
+      if (sphere_t(sphere_cr(L, s), o, d, pre) < t_max) return true;
+    }
   }
   for (int j = 0; j < L.planes.n; ++j) {
     V3 p;
@@ -1120,10 +1443,10 @@ __device__ __forceinline__ void finish_path(const Launch& L, const Path& P) {
 }
 
 // One bounce of path P at P.depth; false once the path has ended.
-template <bool NEE, bool SOBOL, bool SDF>
+template <bool NEE, bool SOBOL, bool SDF, bool DYN>
 __device__ __forceinline__ bool bounce(const Launch& L, Path& P, float clamp_base) {
   const bool sample_lights = NEE && L.lights.n > 0;
-  const Hit h = intersect<SDF>(L, P.o, P.d);
+  const Hit h = intersect<SDF, DYN>(L, P.o, P.d);
   if (!h.hit) return false;  // a miss ends the path: nothing further is added
   const Material mp = load_material(L, h.mid);
   V3 contrib = P.tput * mp.emission;
@@ -1154,7 +1477,7 @@ __device__ __forceinline__ bool bounce(const Launch& L, Path& P, float clamp_bas
     // The light's contribution before the RR decision, as in the JAX
     // kernel; the shadow ray only where it can be non-zero.
     if (ls.valid && cos_surf > 0.0f &&
-        !occluded<SDF>(L, h.p + ls.wi * BOUNCE_EPSILON, ls.wi, ls.t * SHADOW_SCALE)) {
+        !occluded<SDF, DYN>(L, h.p + ls.wi * BOUNCE_EPSILON, ls.wi, ls.t * SHADOW_SCALE)) {
       const V3 f_l = layered_eval(ls.wi, wo, h.n, mp);
       const float p_bsdf = layered_pdf_true(ls.wi, wo, h.n, mp);
       const float mis = ls.pdf / jmax(ls.pdf + p_bsdf, FLOOR_12);
@@ -1199,9 +1522,14 @@ __device__ __forceinline__ void trace(const Launch& L) {
   if (L.tables == nullptr) {
     expand<NEE, DYN>(cornelis_smem, L, threadIdx.x, BLOCK);
     if (DYN) {
+      // The sphere hierarchy first, its scratch in the light table's rows,
+      // which the table then overwrites.
       __syncthreads();
-      light_table::build(StagedScene(L), cornelis_smem + L.lights.at, cornelis_smem + 12,
-                         threadIdx.x, BLOCK);
+      const StagedScene staged(L);
+      walk::build(staged, L.spheres.n, cornelis_smem + walk::region_at(L),
+                  reinterpret_cast<uint32_t*>(cornelis_smem + L.lights.at), threadIdx.x, BLOCK);
+      light_table::build(staged, cornelis_smem + L.lights.at, cornelis_smem + 12, threadIdx.x,
+                         BLOCK);
     }
   }
   if (threadIdx.x == 0) {
@@ -1238,7 +1566,7 @@ __device__ __forceinline__ void trace(const Launch& L) {
     }
     if (__all_sync(FULL, finished)) break;
     if (!alive) continue;
-    if (!bounce<NEE, SOBOL, SDF>(L, P, clamp_base)) {
+    if (!bounce<NEE, SOBOL, SDF, DYN>(L, P, clamp_base)) {
       finish_path(L, P);
       alive = false;
     }
@@ -1284,8 +1612,9 @@ struct Kernels<true, SOBOL, false, false, true> {
 #endif
 
 // Lays the tables out: the header, then planes, SDFs, materials, lights and
-// spheres, each at a 16-byte boundary. Returns the layout's bytes.
-int layout(Launch& L) {
+// spheres, each at a 16-byte boundary, and with `hierarchy` K3's sphere
+// hierarchy after the spheres. Returns the layout's bytes.
+int layout(Launch& L, bool hierarchy = false) {
   int at = HEADER;
   auto put = [&at](Table& t, int floats) {
     t.at = at;
@@ -1296,18 +1625,20 @@ int layout(Launch& L) {
   put(L.materials, MATERIAL_COLS * L.materials.n);
   put(L.lights, LIGHT_COLS * L.lights.n);
   put(L.spheres, SPHERE_COLS * L.spheres.n);
+  if (hierarchy) at += walk::floats(L.spheres.n);
   return 4 * at;
 }
 
 // Zeroes the launch's counter and launches one wave of persistent blocks
 // (SMs x the blocks an SM holds, or fewer for a small launch) on `stream`,
 // with the tables in each block's shared memory, or, past SMEM_CAP, staged
-// once in device memory allocated and freed on `stream`.
+// once in device memory allocated and freed on `stream` (DYN: with the
+// sphere hierarchy's scratch, a word a sphere, past the layout's end).
 template <bool NEE, bool SOBOL, bool SDF, bool IDS, bool DYN = false>
 int launch(Launch L, cudaStream_t stream) {
   const auto kernel = Kernels<NEE, SOBOL, SDF, IDS, DYN>::main_fn;
   const auto stage_kernel = Kernels<NEE, SOBOL, SDF, IDS, DYN>::stage_fn;
-  const int bytes = layout(L);
+  const int bytes = layout(L, DYN);
   const int smem = bytes <= SMEM_CAP ? bytes : 0;
   cudaError_t err = cudaSuccess;
   if (smem > SMEM_DEFAULT)
@@ -1321,7 +1652,7 @@ int launch(Launch L, cudaStream_t stream) {
   if (err == cudaSuccess) err = cudaMemsetAsync(L.counter, 0, sizeof(unsigned), stream);
   float* staged = nullptr;
   if (err == cudaSuccess && smem == 0) {
-    err = cudaMallocAsync((void**)&staged, bytes, stream);
+    err = cudaMallocAsync((void**)&staged, bytes + (DYN ? 4 * L.spheres.n : 0), stream);
     if (err == cudaSuccess) {
       L.tables = staged;
       int items = L.spheres.n > L.planes.n + L.sdfs.n ? L.spheres.n : L.planes.n + L.sdfs.n;
@@ -1495,6 +1826,40 @@ extern "C" int cornelis_megakernel_nee_dynamic(
   return sobol ? launch<true, true, false, false, true>(L, s)
                : launch<true, false, false, false, true>(L, s);
 }
+
+// K3's resident blocks an SM (`blocks`) and the shared memory its launch
+// asks for (`smem_bytes`, 0: the tables are staged in device memory) for a
+// scene of these counts, by the launch's own query.
+extern "C" int cornelis_megakernel_nee_dynamic_occupancy(int n_spheres, int n_planes,
+                                                         int n_materials, int sobol, int* blocks,
+                                                         int* smem_bytes) {
+  Launch L{};
+  L.spheres.n = n_spheres;
+  L.planes.n = n_planes;
+  L.materials.n = n_materials;
+  L.lights.n = n_spheres + n_planes;
+  const int bytes = layout(L, true);
+  const int smem = bytes <= SMEM_CAP ? bytes : 0;
+  const auto kernel = sobol ? megakernel_dyn<true> : megakernel_dyn<false>;
+  cudaError_t err = cudaSuccess;
+  if (smem > SMEM_DEFAULT)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, BLOCK, smem);
+  *smem_bytes = smem;
+  return (int)err;
+}
+
+#ifdef CORNELIS_WALK_COUNTS
+// The counting build's tallies since the last call (walk_counts' twelve
+// counters, in its order) into `out`, and zeroes them.
+extern "C" int cornelis_walk_counts(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, walk_counts, sizeof(walk_counts));
+  const unsigned long long zero[12] = {};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(walk_counts, zero, sizeof(walk_counts));
+  return (int)err;
+}
+#endif
 
 extern "C" int cornelis_megakernel_nee_load() {
   const int err = load_all<true>();

@@ -9,7 +9,9 @@ every table as an operand, so K3 here is the same CUDA bounce loop
 (ops/csrc/megakernel.cu); in mode "nee" its dynamic-table instantiations
 build the light table and clamp base (every sphere and plane a row, in
 float32) in each block's prologue from the tables it has just staged,
-with no launch of their own. An edit of the tables in place (a new
+with no launch of their own, and beside them a hierarchy of boxes over the
+spheres, which their closest-hit and shadow scans walk instead of testing
+every sphere (bit for bit the same rays). An edit of the tables in place (a new
 emission, a moved sphere) re-renders with no rebuild and no host round
 trip. On the CPU the plain version takes the table from
 `lights.light_table_dyn_reference`.

@@ -44,12 +44,16 @@ from .build import launch, load_library
 from .threefry import pair_uniforms
 
 # Kernel launches made by `render_rays` in this process, those of them
-# through an SDF instantiation, and those through the instantiations that
-# build K3's light table in the launch (`dynamic_table`). chip_smoke.py
-# zeroes them before driving a main path and reads them after.
+# through an SDF instantiation, those through the instantiations that
+# build K3's light table in the launch (`dynamic_table`), and those of K3
+# that walked its sphere hierarchy, more than one leaf of WALK_LEAF
+# spheres (csrc/megakernel.cu's walk::LEAF). chip_smoke.py zeroes them
+# before driving a main path and reads them after.
 LAUNCHES = 0
 SDF_LAUNCHES = 0
 DYNAMIC_TABLE_LAUNCHES = 0
+HIERARCHY_LAUNCHES = 0
+WALK_LEAF = 8
 
 SAMPLERS = ("uniform", "sobol")
 MODES = ("path", "nee")
@@ -333,6 +337,19 @@ def _dynamic_table_fn():
     return _set_argtypes(load_library("megakernel_nee").cornelis_megakernel_nee_dynamic, False)
 
 
+def dynamic_occupancy(tables: SceneTables, sampler: str = "sobol") -> tuple:
+    """K3's resident blocks an SM on the current CUDA device for these
+    tables' counts, and the shared memory its launch asks for (0: the
+    tables are staged in device memory)."""
+    fn = load_library("megakernel_nee").cornelis_megakernel_nee_dynamic_occupancy
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    err = fn(tables.spheres.shape[0], tables.planes.shape[0], tables.materials.shape[0],
+             int(sampler == "sobol"), ctypes.byref(blocks), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"K3's occupancy query failed with CUDA error {err}")
+    return blocks.value, smem.value
+
+
 def check_tables(tables: SceneTables) -> None:
     widths = {"camera": None, "spheres": 5, "planes": 9, "materials": 11, "sdfs": SDF_COLS}
     device = tables.camera.device
@@ -381,21 +398,26 @@ def _check_pixel_ids(pixel_ids: torch.Tensor, device) -> None:
 
 
 def _launch_into(out, tables, k0, k1, width, height, spp_chunk, offset, max_depth, *, root,
-                sampler, mode, index_bits, lights, pixel_ids=None, dynamic_table=False) -> None:
+                sampler, mode, index_bits, lights, pixel_ids=None, dynamic_table=False,
+                entry=None) -> None:
     """Launch the kernel on checked CUDA tables, writing ray k's radiance to
     out[k] ((n_rays, 3) float32 on the tables' device); with checked
     `pixel_ids`, ray k is pixel pixel_ids[k // spp_chunk]'s. The kernel's
     blocks take rays in no fixed order, through a ray counter that this
     launch allocates and the C entry zeroes on the launch's stream. With
-    `dynamic_table` the launch builds K3's light table itself."""
+    `dynamic_table` the launch builds K3's light table itself. `entry`
+    replaces the C entry point (one with the same arguments, from another
+    build of the same source)."""
     nee = mode == "nee"
     counter = torch.empty((1,), dtype=torch.int32, device=out.device)
     light_args = (
         (lights.rows.data_ptr(), lights.rows.shape[0], lights.clamp.data_ptr())
         if nee and not dynamic_table else ()
     )
+    if entry is None:
+        entry = _dynamic_table_fn() if dynamic_table else _kernel_fn(nee)
     launch(
-        _dynamic_table_fn() if dynamic_table else _kernel_fn(nee),
+        entry,
         out.device,
         tables.camera.data_ptr(),
         tables.spheres.data_ptr(),
@@ -452,8 +474,10 @@ def render_rays(
     (mode "nee", no `lights`, no SDF rows, no `pixel_ids`) the light table
     and clamp base are K3's: on a CUDA device the launch builds them from
     the tables in every block (`DYNAMIC_TABLE_LAUNCHES` counts those
-    launches too), on the CPU `lights.light_table_dyn_reference` does."""
-    global LAUNCHES, SDF_LAUNCHES, DYNAMIC_TABLE_LAUNCHES
+    launches too, `HIERARCHY_LAUNCHES` those over more than WALK_LEAF
+    spheres, whose scans walk the sphere hierarchy the launch builds), on
+    the CPU `lights.light_table_dyn_reference` does."""
+    global LAUNCHES, SDF_LAUNCHES, DYNAMIC_TABLE_LAUNCHES, HIERARCHY_LAUNCHES
     check_tables(tables)
     device = tables.camera.device
     if dynamic_table:
@@ -485,6 +509,7 @@ def render_rays(
     LAUNCHES += 1
     SDF_LAUNCHES += int(tables.sdfs.shape[0] > 0)
     DYNAMIC_TABLE_LAUNCHES += int(dynamic_table)
+    HIERARCHY_LAUNCHES += int(dynamic_table and tables.spheres.shape[0] > WALK_LEAF)
     return out
 
 

@@ -12,7 +12,11 @@ the bar of K3's other card tests (tests/test_torch_cuda.py): at least
 99% of pixels within rtol = atol = 1e-4 and each channel's mean within 1%,
 since K1's nee instantiations and the plain version's torch ops round
 sinf, cosf and a knife-edge comparison apart now and then. The edit
-itself copies into the tables' own storage on the card.
+itself copies into the tables' own storage on the card. K3's sphere
+hierarchy, walked over more than one leaf of spheres, is held bit for bit
+to the linear scan (K1's nee fed the plain table) on
+tests/torch_walk_scenes.py's cases, and through a session whose edit moves
+a sphere into view.
 """
 
 import json
@@ -23,7 +27,11 @@ import torch
 
 from cornelis_tpu_torch import RenderOptions, RenderSession, SceneDescription
 from cornelis_tpu_torch.ops import lights, megakernel
+from cornelis_tpu_torch.ops.megakernel import render_chunk
+from cornelis_tpu_torch.rng import key_row
 from cornelis_tpu_torch.scene.library import sphere_grid
+from torch_walk_scenes import CASE_NAMES as WALK_CASES
+from torch_walk_scenes import walk_case
 
 pytestmark = pytest.mark.cuda
 
@@ -87,3 +95,48 @@ def test_cuda_an_updated_frame_agrees_with_the_plain_version(cuda, n):
     mean_rel = np.abs(got.mean((0, 1)) - want.mean((0, 1))) / np.abs(want.mean((0, 1)))
     assert np.isfinite(got).all()
     assert ok.mean() >= 0.99 and (mean_rel <= 1e-2).all(), (ok.mean(), mean_rel)
+
+
+# K3's sphere hierarchy (ops/csrc/megakernel.cu), built in every launch,
+# must be the linear scan done better: its nee rays bit for bit those of
+# K1's nee instantiation fed light_table_dyn_reference's table, which scans
+# every sphere in row order, on tests/torch_walk_scenes.py's cases.
+@pytest.mark.parametrize("sampler", ["uniform", "sobol"])
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_cuda_k3s_sphere_hierarchy_is_the_linear_scan_bitwise(cuda, case, sampler):
+    tables = walk_case(case, "cuda")
+    size = 32 if case == "sphere_grid(2200)" else SIZE
+    k0, k1, root = key_row(3)
+    args = (tables, k0, k1, size, size, SPP, 0, 64)
+    kw = dict(root=root, sampler=sampler, mode="nee", index_bits=4)
+    before = megakernel.HIERARCHY_LAUNCHES
+    got = megakernel.render_rays(*args, dynamic_table=True, **kw)
+    walked = megakernel.HIERARCHY_LAUNCHES - before
+    want = megakernel.render_rays(*args, lights=lights.light_table_dyn_reference(tables), **kw)
+    torch.cuda.synchronize()
+    assert walked == int(tables.spheres.shape[0] > megakernel.WALK_LEAF)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_cuda_a_sphere_moved_into_view_is_in_the_next_frame(cuda):
+    """The hierarchy is built from the tables each launch renders: a sphere
+    moved between two frames of one session into the rays toward the
+    image's centre is in the second frame, bit for bit the linear scan of
+    the edited tables."""
+    opts = _options("cuda")
+    session = RenderSession(sphere_grid(512), opts)
+    session.update_scene(_edited(512))
+    first = session.render().image
+    d = json.loads(json.dumps(_edited(512).to_dict()))
+    camera = d["camera"]
+    eye, look = np.array(camera["origin"]), np.array(camera["look_at"])
+    d["spheres"][0]["center"] = (eye + 0.15 * (look - eye)).tolist()
+    session.update_scene(SceneDescription.from_dict(d))
+    second = session.render().image
+    kw = dict(width=SIZE, height=SIZE, spp_chunk=CHUNK, spp_total=SPP, max_depth=64,
+              sampler="sobol", mode="nee", lights=lights.light_table_dyn_reference(session.tables))
+    want = sum(render_chunk(session.tables, session.key, o, **kw)
+               for o in range(0, SPP, CHUNK)) / SPP
+    centre = (slice(SIZE // 2 - 1, SIZE // 2 + 1),) * 2
+    assert not np.array_equal(first[centre], second[centre])
+    assert torch.equal(torch.from_numpy(second).cuda().view(torch.int32), want.view(torch.int32))

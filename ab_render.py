@@ -13,10 +13,9 @@ spills, and whether the instruction text is the same). "rows": for
 every megakernel row of chip_smoke.py's phase 5 (K1 and K3 on the Cornell
 box, K1 on sdf-gallery; each mode and sampler; one 32-spp chunk at
 512x512, spp_total 256, max_depth 64; K1's light table built once, as a
-session builds it, K3's with every launch: by the table kernel before
-each launch, or, where the tree's render_rays takes `dynamic_table`, in
-the launch itself), times a launch by CUDA events over several launches,
-in turns: other, this, this, other, twice.
+session builds it, K3's in the launch itself, `lights.IN_LAUNCH`), times
+a launch by CUDA events over several launches, in turns: other, this,
+this, other, twice.
 It prints each row's readings, their medians, the spread of each side
 (largest reading less smallest) and the share of rays on which the two
 trees' outputs are bitwise equal and within 1e-4. Then the same turns for
@@ -50,7 +49,6 @@ import argparse
 import ctypes
 import importlib
 import importlib.util
-import inspect
 import json
 import os
 import statistics
@@ -64,8 +62,7 @@ VARIANTS = (("path", "uniform"), ("path", "sobol"), ("nee", "uniform"), ("nee", 
 # (row kind, scene, K3): the rows of chip_smoke.py's phase 5.
 ROWS = (("megakernel", "cornell_box", False), ("dynamic", "cornell_box", True),
         ("megakernel", "sdf_gallery", False))
-MODULES = ("ops.megakernel", "ops.lights", "ops.warm", "ops.build", "ops.dynamic",
-           "scene.compile", "scene.library", "rng", "utils.timing", "probes.scene_table",
+MODULES = ("ops.megakernel", "ops.lights", "ops.warm", "ops.build", "scene.compile", "scene.library", "rng", "utils.timing", "probes.scene_table",
            "probes.bf16")
 PARTS = ("sass", "rows", "dynamic", "fma", "zero", "probes", "quad")
 
@@ -82,10 +79,6 @@ def load_tree(root: str, alias: str) -> dict:
     return {name: importlib.import_module(f"{alias}.{name}") for name in MODULES}
 
 
-def builds_table_in_launch(tree: dict) -> bool:
-    return "dynamic_table" in inspect.signature(tree["ops.megakernel"].render_rays).parameters
-
-
 def row_runner(tree: dict, scene: str, dynamic: bool, mode: str, sampler: str, tables=None):
     """A call that launches the row's kernel once on `tree`'s code."""
     m, lt = tree["ops.megakernel"], tree["ops.lights"]
@@ -94,14 +87,13 @@ def row_runner(tree: dict, scene: str, dynamic: bool, mode: str, sampler: str, t
                                                      device="cuda")
     k0, k1, root = tree["rng"].key_row(SEED)
     bits = m.index_bits_for(256)
-    fixed = lt.light_table(tables) if mode == "nee" and not dynamic else None
-    in_launch = mode == "nee" and dynamic and builds_table_in_launch(tree)
+    lights = None
+    if mode == "nee":
+        lights = lt.IN_LAUNCH if dynamic else lt.light_table(tables)
 
     def run():
-        lights = lt.light_table_dyn(tables) if mode == "nee" and dynamic and not in_launch else fixed
-        extra = {"dynamic_table": True} if in_launch else {}
         return m.render_rays(tables, k0, k1, 512, 512, 32, 0, 64, root=root, sampler=sampler,
-                             mode=mode, index_bits=bits, lights=lights, **extra)
+                             mode=mode, index_bits=bits, lights=lights)
 
     return run
 
@@ -255,7 +247,7 @@ def dynamic_rows(other: dict, this: dict, event_ms, kernel_ms) -> dict:
             tables, key = tables_of(tree), tree["rng"].key_row(SEED)
 
             def run():
-                return sum(tree["ops.dynamic"].render_chunk_dynamic(
+                return sum(tree["ops.megakernel"].render_chunk_dynamic(
                     tables, key, o, width=512, height=512, spp_chunk=32, spp_total=256,
                     max_depth=64, sampler="sobol", mode="nee") for o in range(0, 256, 32))
             return run
@@ -287,10 +279,10 @@ def dynamic_rows(other: dict, this: dict, event_ms, kernel_ms) -> dict:
         # The prologue alone: a launch of one ray is one block, its staging
         # (and build) and one path; device time by the profiler, in turns.
         def one_ray(dynamic):
-            extra = {"dynamic_table": True} if dynamic else {"lights": prebuilt}
+            lights = this["ops.lights"].IN_LAUNCH if dynamic else prebuilt
             return lambda: m.render_rays(t_this, k0k1r[0], k0k1r[1], 1, 1, 1, 0, 64,
                                          root=k0k1r[2], sampler="sobol", mode="nee",
-                                         index_bits=m.index_bits_for(256), **extra)
+                                         index_bits=m.index_bits_for(256), lights=lights)
 
         kept = {"a": [], "b": []}
         fed_one, built_one = one_ray(False), one_ray(True)

@@ -156,10 +156,9 @@ raises, so the exit code is not 0 and no result line is printed:
      straight session; (d) a 0.05 s budget over 4096 spp against a
      straight render at the count it reached; (e) the command line with
      --checkpoint, --time-budget, --standard-srgb, --profile-dir and -q;
-     (f) the native host library loaded, and the session's PNG byte-equal
-     to the Python and the native encoders' on its uint8 image; (g) the PNG wall's split on the card's host
-     (copy, accumulate, tonemap, encode; torch or numpy against native,
-     median of 5); (h) tests/test_golden_image.py's 128x128 live golden on
+     (f) the session's PNG byte-equal to the Python encoder's on its uint8
+     image; (g) the PNG wall's split on the card's host (copy, accumulate,
+     tonemap, encode: the film's numpy and torch steps, median of 5); (h) tests/test_golden_image.py's 128x128 live golden on
      the port's wavefront. Its figures are the {"session": ...} line.
 
 Each kernel's least time (bound_ms) is computed from this run's inputs:
@@ -495,7 +494,7 @@ def walk_tallies(counting: dict, tables, key, size: int, spp: int):
 
     import torch
 
-    from cornelis_tpu_torch.ops import megakernel
+    from cornelis_tpu_torch.ops import lights, megakernel
 
     lib = ctypes.CDLL(counting["so"])
     entry = megakernel._set_argtypes(lib.cornelis_megakernel_nee_dynamic, False)
@@ -505,7 +504,7 @@ def walk_tallies(counting: dict, tables, key, size: int, spp: int):
     out = torch.empty((size * size * spp, 3), dtype=torch.float32, device="cuda")
     megakernel._launch_into(out, tables, k0, k1, size, size, spp, 0, 64, root=root,
                             sampler="sobol", mode="nee", index_bits=megakernel.index_bits_for(256),
-                            lights=None, dynamic_table=True, entry=entry)
+                            lights=lights.IN_LAUNCH, entry=entry)
     torch.cuda.synchronize()
     check(lib.cornelis_walk_counts(buf) == 0, "the counting build's tallies failed")
     n = tables.spheres.shape[0]
@@ -1572,11 +1571,10 @@ def medians_ms(fn, reps=5, sync=None):
 
 
 def _host_steps(linear, tmp: str) -> dict:
-    """The film's host steps on one linear frame, each way: {name: fn}."""
+    """The film's host steps on one linear frame: {name: fn}."""
     import numpy as np
     import torch
 
-    from cornelis_tpu_torch import native
     from cornelis_tpu_torch.math import color
     from cornelis_tpu_torch.utils import png
 
@@ -1585,12 +1583,9 @@ def _host_steps(linear, tmp: str) -> dict:
     path = os.path.join(tmp, f"split{os.getpid()}.png")
     return {
         "accumulate, numpy": lambda: np.add(dst, linear, out=dst),
-        "accumulate, native": lambda: native.accumulate(dst, linear),
         "tonemap, torch on the host": lambda: color.quantize_to_8bit(
             color.srgb_encode(torch.from_numpy(linear))).numpy(),
-        "tonemap, native": lambda: native.srgb_quantize(linear),
         "write, Python": lambda: png.write_png(path, srgb8),
-        "write, native": lambda: native.write_png(path, srgb8),
     }
 
 
@@ -1615,10 +1610,10 @@ def cold_split(spec_path: str) -> int:
 def png_split(radiance_sum, samples: int, tmp: str, card: str) -> dict:
     """Where the PNG wall of a 512x512 frame goes on this host: the copy of
     the device accumulator to the host and the tonemap on the card (median
-    of 5), then the film's accumulate, tonemap and PNG write each way, the
-    port's numpy or torch step against the native library's, warm (20
-    rounds in turns, the order swapped each round) and cold (the first
-    call in a fresh process, six processes, the order swapped each)."""
+    of 5), then the film's accumulate, tonemap and PNG write, warm (20
+    rounds, the order reversed every other round) and cold (the first call
+    in a fresh process, six processes, the order reversed every other
+    one)."""
     import numpy as np
     import torch
 
@@ -1642,23 +1637,22 @@ def png_split(radiance_sum, samples: int, tmp: str, card: str) -> dict:
         report(name, medians_ms(fn)[1], "warm")
     linear = radiance_sum.cpu().numpy() / samples
     steps = _host_steps(linear, tmp)
-    pairs = [tuple(steps)[i:i + 2] for i in range(0, len(steps), 2)]
+    names = list(steps)
     runs = {name: [] for name in steps}
     for fn in steps.values():
         fn()
     for r in range(20):
-        for pair in pairs:
-            for name in pair[::-1] if r % 2 else pair:
-                t0 = time.perf_counter()
-                steps[name]()
-                runs[name].append((time.perf_counter() - t0) * 1e3)
+        for name in names[::-1] if r % 2 else names:
+            t0 = time.perf_counter()
+            steps[name]()
+            runs[name].append((time.perf_counter() - t0) * 1e3)
     for name, r in runs.items():
         report(name, r, "warm")
 
     np.save(os.path.join(tmp, "linear.npy"), linear)
     cold = {name: [] for name in steps}
     for i in range(6):
-        order = [name for pair in pairs for name in (pair[::-1] if i % 2 else pair)]
+        order = names[::-1] if i % 2 else names
         spec = os.path.join(tmp, "cold.json")
         with open(spec, "w") as f:
             json.dump(dict(linear=os.path.join(tmp, "linear.npy"), tmp=tmp, order=order), f)
@@ -1736,8 +1730,8 @@ def session_phase(card: str) -> dict:
     512x512, 256 spp, max_depth 64, path/uniform) under every new branch,
     each launching K1: (a) a progress callback, against the plain
     session's wall; (b) an abort; (c) a checkpoint and its resume; (d) a
-    time budget; (e) the command line with its new flags; (f) the native
-    library and the PNG bytes; (g) the PNG wall's split on this host; (h)
+    time budget; (e) the command line with its new flags; (f) the PNG
+    bytes; (g) the PNG wall's split on this host; (h)
     the 128x128 live golden on the wavefront. Returns the {"session": ...}
     record."""
     import numpy as np
@@ -1749,7 +1743,6 @@ def session_phase(card: str) -> dict:
         RenderSession,
         RenderStatus,
         cornell_box,
-        native,
     )
     from cornelis_tpu_torch.cli import main as cli_main
     from cornelis_tpu_torch.film import Film
@@ -1901,22 +1894,15 @@ def session_phase(card: str) -> dict:
         check(quiet == 30 and same and len(traces) == 1, "(e) -q, --standard-srgb or the trace")
         record["cli"] = dict(launches=launches, samples=next_sample, kernel_events=kernel_events)
 
-        # (f) The native library on this host, and the session's PNG.
-        lib = native.build()
+        # (f) The session's PNG.
         session_png = os.path.join(tmp, "session.png")
         result, _ = run(RenderSession(cornell_box(), RenderOptions(output=session_png)))
         with open(session_png, "rb") as f:
             png_bytes = f.read()
-        srgb8 = result.film.to_srgb8()
-        equal = png_bytes == png.encode_png(srgb8)
-        native_equal = png_bytes == native.encode_png(srgb8)
-        print(f"(f) native library {'loaded' if native.available() else 'NOT loaded'} from "
-              f"{os.path.relpath(lib, REPO) if lib else None}; the session's PNG "
-              f"{'byte-equal to' if equal else 'DIFFERS from'} the Python encoder's and "
-              f"{'byte-equal to' if native_equal else 'DIFFERS from'} the native encoder's "
-              "on the same uint8 image")
-        check(native.available() and lib is not None, "(f) the native library did not load")
-        check(equal and native_equal, "(f) the session's PNG differs from an encoder's bytes")
+        equal = png_bytes == png.encode_png(result.film.to_srgb8())
+        print(f"(f) the session's PNG {'byte-equal to' if equal else 'DIFFERS from'} the Python "
+              "encoder's on the same uint8 image")
+        check(equal, "(f) the session's PNG differs from the encoder's bytes")
 
         # (g) The PNG wall's split on this host.
         record["png_split"] = png_split(
@@ -1943,8 +1929,7 @@ def main() -> int:
     from cornelis_tpu_torch import RenderOptions, RenderSession, RenderStatus, SceneDescription
     from cornelis_tpu_torch.__main__ import main as cli_main
     from cornelis_tpu_torch.ops import build, lights, megakernel, warm
-    from cornelis_tpu_torch.ops.dynamic import render_chunk_dynamic
-    from cornelis_tpu_torch.ops.megakernel import render_chunk
+    from cornelis_tpu_torch.ops.megakernel import render_chunk, render_chunk_dynamic
     from cornelis_tpu_torch.probes import bf16 as bf16_probe
     from cornelis_tpu_torch.probes import scan_designs, scene_table
     from cornelis_tpu_torch.rng import key_row
@@ -2121,7 +2106,7 @@ def main() -> int:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             megakernel.render_rays(tiny[False], k0, k1, 8, 8, 1, 0, 1, root=root, sampler=sampler,
-                                   mode="nee", dynamic_table=True)
+                                   mode="nee", lights=lights.IN_LAUNCH)
             torch.cuda.synchronize()
             launch_s.append(time.perf_counter() - t0)
         print(f"  {kernel_name('megakernel_dyn', 'nee', sampler)}, 8x8x1 at depth 1: first launch "
@@ -2145,7 +2130,7 @@ def main() -> int:
         plain version and for K1's nee instantiation)."""
         kw = dict(root=root, sampler=sampler, mode=mode, index_bits=bits, lights=None)
         if mode == "nee" and dynamic and not plain:
-            kw["dynamic_table"] = True
+            kw["lights"] = lights.IN_LAUNCH
         elif mode == "nee":
             kw["lights"] = (lights.light_table_dyn_reference if dynamic else lights.light_table)(tables)
         return kw
@@ -2527,7 +2512,7 @@ def main() -> int:
         production = megakernel.render_rays(walk_tables, k0, k1, size, size, spp_chunk, 0,
                                             opts.max_depth, root=root, sampler="sobol", mode="nee",
                                             index_bits=megakernel.index_bits_for(opts.samples_aa),
-                                            dynamic_table=True)
+                                            lights=lights.IN_LAUNCH)
         hold_bitwise(f"  K3's counting build on {scene_name} against the production K3", counted,
                      production)
         n_spheres = walk_tables.spheres.shape[0]
@@ -2761,7 +2746,7 @@ def main() -> int:
     phase_done()
 
     phase("8. the session at the main path's width: progress, abort, checkpoint, budget, CLI, "
-          "native runtime, PNG split, live golden")
+          "PNG bytes, PNG split, live golden")
     session_record = session_phase(card)
     phase_done()
 

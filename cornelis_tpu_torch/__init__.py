@@ -5,16 +5,15 @@ to PyTorch, with the TPU's Pallas megakernel rewritten as a hand-written
 CUDA kernel for Hopper (ops/csrc/megakernel.cu). This package imports
 torch and numpy, never jax. It runs the path and NEE integrators with the
 uniform and Sobol samplers on spheres, planes and SDF primitives, the
-dynamic-scene render (ops/dynamic.py, spheres and planes), the warm-up
-(ops/warm.py) and the TPU-era probes (probes/); and, on the torch-op
-wavefront (integrator.py) under autograd, the differentiable mode
-(diff/: render_diff and InverseRenderer); and the render and the
-inverse-render step over a (tiles, samples) mesh of torch.distributed
-ranks (parallel/, diff/sharded.py), each rank's share traced by the
-kernel through its pixel-id operand. The render session has progress,
-abort, checkpoint/resume and a time budget, agreed by every rank under a
-mesh (render.py). The native host runtime (native/) is the JAX
-package's, built with g++ at first use.
+dynamic-scene render (`ops/megakernel.py::render_chunk_dynamic`, spheres
+and planes), the warm-up (ops/warm.py) and the TPU-era probes (probes/);
+and, on the torch-op wavefront (integrator.py) under autograd, the
+differentiable mode (diff/: render_diff and InverseRenderer); and the
+render and the inverse-render step over a (tiles, samples) mesh of
+torch.distributed ranks (parallel/, diff/sharded.py), each rank's share
+traced by the kernel through its pixel-id operand. The render session has
+progress, abort, checkpoint/resume and a time budget, agreed by every
+rank under a mesh (render.py).
 
 Exports every name of `cornelis_tpu/__init__.py`; `render_chunk` and
 `trace_paths` are the torch wavefront's, as there they are the XLA one's.

@@ -6,18 +6,12 @@ src/Render.cpp:257-265): linear radiance sums and a sample count on the
 host; the estimate is sum / count. Checkpoints use the JAX package's npz
 keys, so a checkpoint written by either package resumes in the other.
 
-Each host step keeps the port's own implementation, numpy's accumulate,
-torch's tonemap on the host and the Python PNG encoder: the native host
-runtime (native/) has each step too (its tonemap within one 8-bit count,
-its PNG bytes equal), and the card's host measured none of them faster
-where a render repeats (`chip_smoke.py` phase 8g; PERF.md section 5 has
-the runs). Its accumulate was slower in every run. Its one-thread
-tonemap took 11-14 ms where torch's took 2.0-6.3 ms in five runs of six
-(21.3 in the sixth); only a process's first tonemap, which pays for
-torch's thread pool, went to the native one in three runs of four, by
-1-21 ms against a process start of seconds. Its PNG writer (the same
-zlib, so the same bytes) had medians above the Python encoder's in every
-warm run, and within 3 ms of it either way cold.
+The host steps are numpy's accumulate, torch's tonemap on the host and
+the Python PNG encoder. A native C++ runtime for the same steps was
+measured on the card's host and was not faster where a render repeats
+(PERF.md, section 6), so the port has none; the tests hold the tonemap
+within one 8-bit count of the JAX package's native one and the PNG bytes
+equal to its native encoder's.
 """
 
 from __future__ import annotations

@@ -33,6 +33,9 @@ Both weight a sphere by 4 pi r^2 with math.pi, not the reference's PI.
 Neither has a row for an SDF: an SDF emitter is reached by BSDF sampling
 alone (its MIS weight is 1), as in the JAX kernels; the clamp base takes
 the brightest emission over every material, an SDF's included.
+
+A mode "nee" launch (`megakernel.render_rays`) reads one of two values:
+a `Lights`, K1's table, or `IN_LAUNCH`, K3's, which the launch builds.
 """
 
 from __future__ import annotations
@@ -61,6 +64,21 @@ class Lights(NamedTuple):
 
     rows: torch.Tensor  # (L, LIGHT_COLS) float32; L = 0: nothing emits
     clamp: torch.Tensor  # (1,) float32 clamp base (inf: no clamp)
+
+
+class _InLaunch:
+    """The type of `IN_LAUNCH`, its one value."""
+
+    __slots__ = ()
+
+    def __repr__(self) -> str:
+        return "IN_LAUNCH"
+
+
+# K3's table and clamp base, built by the launch from the tables it reads
+# (on the CPU, `light_table_dyn_reference`'s): what a nee launch reads in
+# place of a `Lights`.
+IN_LAUNCH = _InLaunch()
 
 
 def _luminance(le) -> float:

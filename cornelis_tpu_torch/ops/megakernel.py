@@ -17,9 +17,9 @@ pixel_ids[k // spp_chunk], sample offset + k % spp_chunk): the port of the
 mesh megakernel's `px` and `si` operands. Both versions write one RGB
 radiance per ray into an (n_rays, 3) float32 tensor; `render_chunk` sums
 each pixel's samples outside the kernel.
-Mode "nee" reads a light table (ops/lights.py): K1's, built on the host,
-here; or, with `dynamic_table` (ops/dynamic.py), the dynamic-scene
-kernel's, which the launch builds itself from the tables.
+Mode "nee" reads a light table (ops/lights.py): K1's `Lights`, built on
+the host, or `IN_LAUNCH`, the dynamic-scene kernel's (K3,
+`render_chunk_dynamic`), which the launch builds itself from the tables.
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ from .threefry import pair_uniforms
 
 # Kernel launches made by `render_rays` in this process, those of them
 # through an SDF instantiation, those through the instantiations that
-# build K3's light table in the launch (`dynamic_table`), and those of K3
+# build K3's light table in the launch (`IN_LAUNCH`), and those of K3
 # that walked its sphere hierarchy, more than one leaf of WALK_LEAF
 # spheres (csrc/megakernel.cu's walk::LEAF). chip_smoke.py zeroes them
 # before driving a main path and reads them after.
@@ -196,16 +196,20 @@ def render_rays_reference(
     sampler: str = "uniform",
     mode: str = "path",
     index_bits: int = 32,
-    lights: Optional[L.Lights] = None,
+    lights=None,
     pixel: Optional[torch.Tensor] = None,
     sample: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The plain torch version of the kernel: (n_rays, 3) radiance.
+    """The plain torch version of the kernel: (n_rays, 3) radiance. Mode
+    "nee" reads `lights` as `render_rays` does: K1's `Lights`, or
+    `IN_LAUNCH`, for which it traces with `light_table_dyn_reference`'s.
 
     With `pixel` and `sample` (equal-length integer tensors) it traces
     those rays instead of the chunk's; spp_chunk and offset are then
     unused."""
-    _check_variant(sampler, mode, lights)
+    _check_launch(tables, sampler, mode, lights)
+    if lights is L.IN_LAUNCH:
+        lights = L.light_table_dyn_reference(tables)
     tables = tables.to(device)
     if pixel is None:
         k = torch.arange(width * height * spp_chunk, dtype=torch.int64, device=device)
@@ -331,7 +335,7 @@ def _kernel_fn(nee: bool):
 
 
 @functools.lru_cache(maxsize=None)
-def _dynamic_table_fn():
+def _in_launch_fn():
     """The C entry point of mode "nee" that builds K3's light table in the
     launch (libmegakernel_nee); the arguments of mode "path"'s."""
     return _set_argtypes(load_library("megakernel_nee").cornelis_megakernel_nee_dynamic, False)
@@ -363,59 +367,65 @@ def check_tables(tables: SceneTables) -> None:
         raise ValueError("the material table is empty")
 
 
-def _check_variant(sampler: str, mode: str, lights: Optional[L.Lights],
-                   dynamic_table: bool = False) -> None:
+def _refuse_sdfs(tables: SceneTables) -> None:
+    if tables.sdfs.shape[0]:
+        raise NotImplementedError(
+            "the dynamic-scene kernel (K3) takes no SDF primitives (as cornelis_tpu's "
+            "render_chunk_pallas_dynamic); render SDF scenes with render_chunk"
+        )
+
+
+def _check_launch(tables: SceneTables, sampler: str, mode: str, lights, pixel_ids=None) -> None:
+    """Refuse what no instantiation renders. Mode "nee" reads K1's `Lights`
+    (float32 and contiguous on the tables' device) or `IN_LAUNCH`, which
+    the launch builds from the spheres and planes alone: not in mode
+    "path", with no `pixel_ids`, with a sphere or a plane (ValueError),
+    and with no SDF rows (NotImplementedError)."""
     if sampler not in SAMPLERS:
         raise ValueError(f"sampler must be one of {SAMPLERS} (not {sampler!r})")
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES} (not {mode!r})")
-    if mode == "nee" and lights is None and not dynamic_table:
-        raise ValueError("mode 'nee' needs a light table (ops/lights.py)")
-
-
-def _check_dynamic_table(tables: SceneTables, mode: str, lights, pixel_ids) -> None:
-    if mode != "nee" or lights is not None or pixel_ids is not None:
-        raise ValueError("dynamic_table builds mode 'nee''s light table in the launch: it takes "
-                         "no light table and no pixel_ids")
-    if tables.sdfs.shape[0]:
-        raise ValueError("dynamic_table takes no SDF rows")
-    L._check_dyn(tables)
-
-
-def _check_lights(lights: L.Lights, device) -> None:
-    rows, clamp = lights
-    for name, t in (("rows", rows), ("clamp", clamp)):
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != device:
-            raise ValueError(f"light {name} must be contiguous float32 on {device}")
-    if rows.ndim != 2 or rows.shape[1] != L.LIGHT_COLS or clamp.shape != (1,):
-        raise ValueError(f"light table shapes {tuple(rows.shape)}, {tuple(clamp.shape)}")
-
-
-def _check_pixel_ids(pixel_ids: torch.Tensor, device) -> None:
-    if (pixel_ids.dtype != torch.int32 or pixel_ids.ndim != 1 or not pixel_ids.is_contiguous()
-            or pixel_ids.device != device):
+    device = tables.camera.device
+    if lights is L.IN_LAUNCH:
+        if mode != "nee" or pixel_ids is not None:
+            raise ValueError("IN_LAUNCH builds mode 'nee''s light table in the launch: it takes "
+                             "no pixel_ids")
+        _refuse_sdfs(tables)
+        L._check_dyn(tables)
+    elif mode == "nee":
+        if lights is None:
+            raise ValueError("mode 'nee' needs a light table: a Lights or IN_LAUNCH "
+                             "(ops/lights.py)")
+        rows, clamp = lights
+        for name, t in (("rows", rows), ("clamp", clamp)):
+            if t.dtype != torch.float32 or not t.is_contiguous() or t.device != device:
+                raise ValueError(f"light {name} must be contiguous float32 on {device}")
+        if rows.ndim != 2 or rows.shape[1] != L.LIGHT_COLS or clamp.shape != (1,):
+            raise ValueError(f"light table shapes {tuple(rows.shape)}, {tuple(clamp.shape)}")
+    if pixel_ids is not None and (
+            pixel_ids.dtype != torch.int32 or pixel_ids.ndim != 1
+            or not pixel_ids.is_contiguous() or pixel_ids.device != device):
         raise ValueError(f"pixel_ids must be a contiguous 1-D int32 tensor on {device}")
 
 
 def _launch_into(out, tables, k0, k1, width, height, spp_chunk, offset, max_depth, *, root,
-                sampler, mode, index_bits, lights, pixel_ids=None, dynamic_table=False,
-                entry=None) -> None:
+                sampler, mode, index_bits, lights, pixel_ids=None, entry=None) -> None:
     """Launch the kernel on checked CUDA tables, writing ray k's radiance to
     out[k] ((n_rays, 3) float32 on the tables' device); with checked
     `pixel_ids`, ray k is pixel pixel_ids[k // spp_chunk]'s. The kernel's
     blocks take rays in no fixed order, through a ray counter that this
     launch allocates and the C entry zeroes on the launch's stream. With
-    `dynamic_table` the launch builds K3's light table itself. `entry`
+    `IN_LAUNCH` the launch builds K3's light table itself. `entry`
     replaces the C entry point (one with the same arguments, from another
     build of the same source)."""
-    nee = mode == "nee"
+    nee, in_launch = mode == "nee", lights is L.IN_LAUNCH
     counter = torch.empty((1,), dtype=torch.int32, device=out.device)
     light_args = (
         (lights.rows.data_ptr(), lights.rows.shape[0], lights.clamp.data_ptr())
-        if nee and not dynamic_table else ()
+        if nee and not in_launch else ()
     )
     if entry is None:
-        entry = _dynamic_table_fn() if dynamic_table else _kernel_fn(nee)
+        entry = _in_launch_fn() if in_launch else _kernel_fn(nee)
     launch(
         entry,
         out.device,
@@ -461,34 +471,25 @@ def render_rays(
     sampler: str = "uniform",
     mode: str = "path",
     index_bits: int = 32,
-    lights: Optional[L.Lights] = None,
+    lights=None,
     pixel_ids: Optional[torch.Tensor] = None,
-    dynamic_table: bool = False,
 ) -> torch.Tensor:
     """(n_rays, 3) radiance on the tables' device: the CUDA kernel on a CUDA
     device, the plain version on the CPU. A failed launch raises. Tables
     with SDF rows launch the SDF instantiation (`SDF_LAUNCHES` counts
     those launches too). With `pixel_ids` (contiguous int32 frame pixel
     indices on the tables' device) the launch traces those pixels' rays,
-    len(pixel_ids) x spp_chunk of them, pixel-major. With `dynamic_table`
-    (mode "nee", no `lights`, no SDF rows, no `pixel_ids`) the light table
-    and clamp base are K3's: on a CUDA device the launch builds them from
-    the tables in every block (`DYNAMIC_TABLE_LAUNCHES` counts those
-    launches too, `HIERARCHY_LAUNCHES` those over more than WALK_LEAF
-    spheres, whose scans walk the sphere hierarchy the launch builds), on
-    the CPU `lights.light_table_dyn_reference` does."""
+    len(pixel_ids) x spp_chunk of them, pixel-major. Mode "nee" reads
+    `lights`: K1's `Lights`, or `IN_LAUNCH` (no SDF rows, no `pixel_ids`)
+    for K3's light table and clamp base: on a CUDA device the launch
+    builds them from the tables in every block (`DYNAMIC_TABLE_LAUNCHES`
+    counts those launches too, `HIERARCHY_LAUNCHES` those over more than
+    WALK_LEAF spheres, whose scans walk the sphere hierarchy the launch
+    builds), on the CPU `lights.light_table_dyn_reference` does."""
     global LAUNCHES, SDF_LAUNCHES, DYNAMIC_TABLE_LAUNCHES, HIERARCHY_LAUNCHES
     check_tables(tables)
+    _check_launch(tables, sampler, mode, lights, pixel_ids)
     device = tables.camera.device
-    if dynamic_table:
-        _check_dynamic_table(tables, mode, lights, pixel_ids)
-        if device.type == "cpu":
-            lights, dynamic_table = L.light_table_dyn_reference(tables), False
-    _check_variant(sampler, mode, lights, dynamic_table)
-    if mode == "nee" and not dynamic_table:
-        _check_lights(lights, device)
-    if pixel_ids is not None:
-        _check_pixel_ids(pixel_ids, device)
     n_pixels = width * height if pixel_ids is None else pixel_ids.shape[0]
     if device.type == "cpu":
         pixel = sample = None
@@ -505,11 +506,12 @@ def render_rays(
     out = torch.empty((n_pixels * spp_chunk, 3), dtype=torch.float32, device=device)
     _launch_into(out, tables, k0, k1, width, height, spp_chunk, offset, max_depth, root=root,
                 sampler=sampler, mode=mode, index_bits=index_bits, lights=lights,
-                pixel_ids=pixel_ids, dynamic_table=dynamic_table)
+                pixel_ids=pixel_ids)
+    in_launch = lights is L.IN_LAUNCH
     LAUNCHES += 1
     SDF_LAUNCHES += int(tables.sdfs.shape[0] > 0)
-    DYNAMIC_TABLE_LAUNCHES += int(dynamic_table)
-    HIERARCHY_LAUNCHES += int(dynamic_table and tables.spheres.shape[0] > WALK_LEAF)
+    DYNAMIC_TABLE_LAUNCHES += int(in_launch)
+    HIERARCHY_LAUNCHES += int(in_launch and tables.spheres.shape[0] > WALK_LEAF)
     return out
 
 
@@ -526,20 +528,64 @@ def render_chunk(
     sampler: str = "uniform",
     mode: str = "path",
     nee_clamp: Optional[float] = None,
-    lights: Optional[L.Lights] = None,
-    dynamic_table: bool = False,
+    lights=None,
 ) -> torch.Tensor:
     """(H, W, 3) radiance sums over one chunk of samples per pixel, through
     `render_rays` (`render_chunk_pallas`). `key` is the key row
     (k0, k1, root) of `rng.key_row`. Mode "nee" builds K1's light table
-    unless `lights` brings one (a session builds it once) or
-    `dynamic_table` asks for K3's (see `render_rays`)."""
+    from `nee_clamp` unless `lights` brings a table (a session builds K1's
+    once) or `IN_LAUNCH` (see `render_rays`)."""
     k0, k1, root = key
-    if mode == "nee" and lights is None and not dynamic_table:
+    if mode == "nee" and lights is None:
         lights = L.light_table(tables, nee_clamp)
     rays = render_rays(
         tables, k0, k1, width, height, spp_chunk, sample_offset, max_depth,
         root=root, sampler=sampler, mode=mode, index_bits=index_bits_for(spp_total),
-        lights=lights, dynamic_table=dynamic_table,
+        lights=lights,
     )
     return rays.view(width * height, spp_chunk, 3).sum(dim=1).view(height, width, 3)
+
+
+def render_chunk_dynamic(
+    tables: SceneTables,
+    key: tuple,
+    sample_offset: int,
+    *,
+    width: int,
+    height: int,
+    spp_chunk: int,
+    spp_total: int,
+    max_depth: int,
+    sampler: str = "uniform",
+    mode: str = "path",
+) -> torch.Tensor:
+    """The dynamic-scene render (K3): `render_chunk` with K3's light table
+    in mode "nee" (`IN_LAUNCH`); mode "path" reads none.
+
+    Counterpart of `cornelis_tpu/ops/pallas_dynamic.py::
+    render_chunk_pallas_dynamic`. On the TPU that was a second kernel: the
+    baked megakernel took the scene as literals, so a kernel that read the
+    tables as operands had to be written apart, with the NEE light table
+    built inside it from the traced tables at the top of every grid step.
+    This megakernel already reads every table as an operand, so K3 is the
+    same CUDA bounce loop (ops/csrc/megakernel.cu); in mode "nee" its
+    dynamic-table instantiations build the light table and clamp base
+    (every sphere and plane a row, in float32) in each block's prologue
+    from the tables it has just staged, with no launch of their own, and
+    beside them a hierarchy of boxes over the spheres, which their
+    closest-hit and shadow scans walk instead of testing every sphere (bit
+    for bit the same rays). An edit of the tables in place (a new emission,
+    a moved sphere) re-renders with no rebuild and no host round trip. On
+    the CPU the plain version takes the table from
+    `lights.light_table_dyn_reference`; K3 takes no clamp override.
+
+    Like the JAX function (pallas_dynamic.py:591-595), it takes no SDFs in
+    either mode: tables with SDF rows raise NotImplementedError (render
+    such scenes with `render_chunk`, K1's SDF instantiations). In mode
+    "nee" a scene with no sphere and no plane raises ValueError."""
+    _refuse_sdfs(tables)
+    return render_chunk(
+        tables, key, sample_offset, width=width, height=height, spp_chunk=spp_chunk,
+        spp_total=spp_total, max_depth=max_depth, sampler=sampler, mode=mode,
+        lights=L.IN_LAUNCH if mode == "nee" else None,
+    )

@@ -1,9 +1,9 @@
 """Minimal dependency-free PNG writer and reader, in numpy and zlib.
 
 Replaces the reference's vendored stb_image_write (only stbi_write_png is
-used, src/Render.cpp:263). The same codec as `cornelis_tpu/utils/png.py`;
-the native encoder (native/) writes the same bytes. The film writes with
-this one (film.py says why).
+used, src/Render.cpp:263). The same codec as `cornelis_tpu/utils/png.py`,
+and the same bytes as the JAX package's native encoder (film.py says why
+the port has no native one).
 """
 
 from __future__ import annotations

@@ -109,12 +109,12 @@ def test_an_update_keeps_every_tables_storage():
     for got, ref in zip(session.tables, want):
         assert torch.equal(got, ref)
     # The K1 table is gone: the next chunks build K3's.
-    assert session.lights is None
+    assert session.lights is lights.IN_LAUNCH
 
 
 def test_a_never_updated_session_keeps_k1():
     session = RenderSession(_scene(0), _options())
-    assert session.lights is not None
+    assert isinstance(session.lights, lights.Lights)
     image = session.render().image
     assert np.array_equal(image, RenderSession(_scene(0), _options()).render().image)
 

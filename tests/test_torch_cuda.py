@@ -57,7 +57,7 @@ import torch
 
 from cornelis_tpu_torch import RenderOptions, RenderSession, RenderStatus, render_scene
 from cornelis_tpu_torch.ops import draws, lights, megakernel, warm
-from cornelis_tpu_torch.ops.dynamic import render_chunk_dynamic
+from cornelis_tpu_torch.ops.megakernel import render_chunk_dynamic
 from cornelis_tpu_torch.probes import bf16 as bf16_probe
 from cornelis_tpu_torch.probes import scene_table
 from cornelis_tpu_torch.rng import DEFAULT_SEED, key_row

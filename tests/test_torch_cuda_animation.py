@@ -110,7 +110,7 @@ def test_cuda_k3s_sphere_hierarchy_is_the_linear_scan_bitwise(cuda, case, sample
     args = (tables, k0, k1, size, size, SPP, 0, 64)
     kw = dict(root=root, sampler=sampler, mode="nee", index_bits=4)
     before = megakernel.HIERARCHY_LAUNCHES
-    got = megakernel.render_rays(*args, dynamic_table=True, **kw)
+    got = megakernel.render_rays(*args, lights=lights.IN_LAUNCH, **kw)
     walked = megakernel.HIERARCHY_LAUNCHES - before
     want = megakernel.render_rays(*args, lights=lights.light_table_dyn_reference(tables), **kw)
     torch.cuda.synchronize()

@@ -1,7 +1,8 @@
 """The dynamic-scene render (K3) against cornelis_tpu's dynamic-scene kernel.
 
-`ops.dynamic.render_chunk_dynamic` is the megakernel with K3's light table
-(every sphere and plane a row, in float32): on a card its launch builds
+`ops.megakernel.render_chunk_dynamic` is the megakernel with K3's light
+table, `lights.IN_LAUNCH` (every sphere and plane a row, in float32): on a
+card its launch builds
 the table from the tables in every block; on the CPU the plain version
 takes it from `lights.light_table_dyn_reference`. It must compute what
 `cornelis_tpu.ops.pallas_dynamic.render_chunk_pallas_dynamic` computes,
@@ -36,7 +37,7 @@ from cornelis_tpu.ops.pallas_integrator import HostScene
 from cornelis_tpu.scene.compile import compile_scene as jcompile
 from cornelis_tpu.scene.library import sdf_gallery
 from cornelis_tpu_torch.ops import lights, megakernel
-from cornelis_tpu_torch.ops.dynamic import render_chunk_dynamic
+from cornelis_tpu_torch.ops.megakernel import render_chunk_dynamic
 from cornelis_tpu_torch.rng import DEFAULT_SEED, key_row
 from cornelis_tpu_torch.scene.compile import compile_scene, from_numpy_scene
 from cornelis_tpu_torch.scene.description import SceneDescription
@@ -163,35 +164,44 @@ def test_cpu_tables_launch_nothing():
 
 
 def test_dynamic_table_on_the_cpu_is_the_plain_tables():
-    # On CPU tables, render_rays(dynamic_table=True) traces with
+    # On CPU tables, render_rays(lights=IN_LAUNCH) traces with
     # light_table_dyn_reference's table, and launches nothing.
     tables = compile_scene(scenes("cornell_panel")[1], device="cpu")
     k0, k1, root = key_row(3)
     kw = dict(root=root, sampler="sobol", mode="nee", index_bits=4)
     before = (megakernel.LAUNCHES, megakernel.DYNAMIC_TABLE_LAUNCHES, lights.LAUNCHES)
-    got = megakernel.render_rays(tables, k0, k1, 8, 8, 2, 0, 4, dynamic_table=True, **kw)
+    got = megakernel.render_rays(tables, k0, k1, 8, 8, 2, 0, 4, lights=lights.IN_LAUNCH, **kw)
     want = megakernel.render_rays(tables, k0, k1, 8, 8, 2, 0, 4,
                                   lights=lights.light_table_dyn_reference(tables), **kw)
     assert torch.equal(got, want)
     assert (megakernel.LAUNCHES, megakernel.DYNAMIC_TABLE_LAUNCHES, lights.LAUNCHES) == before
 
 
-@pytest.mark.parametrize("case", ["path", "with_lights", "sdf", "pixel_ids", "empty"])
+@pytest.mark.parametrize(
+    "case", ["path", "sdf", "pixel_ids", "empty", "k1_wrong_width", "nee_without_table"]
+)
 def test_dynamic_table_guards(case):
-    # dynamic_table builds mode nee's table from spheres and planes alone:
-    # it takes no table of its own, no SDF rows, no pixel list, and needs a
-    # sphere or a plane.
+    # IN_LAUNCH builds mode nee's table from spheres and planes alone: it is
+    # refused in mode path, with a pixel list and with neither a sphere nor
+    # a plane (ValueError), and with SDF rows (NotImplementedError, as
+    # render_chunk_dynamic refuses them). A nee launch needs a table, and
+    # K1's has LIGHT_COLS columns.
     tables = compile_scene(scenes("cornell_box")[1], device="cpu")
-    kw = dict(mode="nee", dynamic_table=True)
+    kw = dict(mode="nee", lights=lights.IN_LAUNCH)
+    error = ValueError
     if case == "path":
         kw["mode"] = "path"
-    elif case == "with_lights":
-        kw["lights"] = lights.light_table_dyn_reference(tables)
     elif case == "sdf":
         tables = from_numpy_scene(jax.device_get(jcompile(sdf_gallery())), device="cpu")
+        error = NotImplementedError
     elif case == "pixel_ids":
         kw["pixel_ids"] = torch.zeros(4, dtype=torch.int32)
-    else:
+    elif case == "empty":
         tables = tables._replace(spheres=tables.spheres[:0], planes=tables.planes[:0])
-    with pytest.raises(ValueError):
+    elif case == "k1_wrong_width":
+        k1 = lights.light_table(tables)
+        kw["lights"] = k1._replace(rows=k1.rows[:, :-1].contiguous())
+    else:
+        kw["lights"] = None
+    with pytest.raises(error):
         megakernel.render_rays(tables, 0, 1, 4, 4, 1, 0, 2, **kw)

@@ -1,7 +1,10 @@
 """The port's Film and PNG codec against the JAX package's
 (tests/test_film.py): accumulation, the tonemap with either sRGB slope,
 PNG round trips, `mse`, `load_image_linear` and checkpoints that load in
-either package.
+either package; and against the JAX package's native host runtime
+(`cornelis_tpu/native/`), which the port does not carry: its PNG bytes and
+its tonemap. The native cases skip only where that library cannot be
+built (no g++ or zlib), decided in a fixture.
 
 Bars: the tonemap within one 8-bit count of JAX's on every pixel (the
 pow of the two libraries may differ in the last ulp, moving a value on a
@@ -12,10 +15,13 @@ rest exact.
 
 import numpy as np
 import pytest
+import torch
 
 from cornelis_tpu import film as jfilm
+from cornelis_tpu import native as jnative
 from cornelis_tpu.utils import png as jpng
 from cornelis_tpu_torch.film import Film, load_image_linear, mse
+from cornelis_tpu_torch.math import color
 from cornelis_tpu_torch.utils.png import encode_png, read_png, write_png
 
 
@@ -26,6 +32,22 @@ def _linear(h=24, w=40, seed=0, scale=1.5):
     img[0, 1] = 0.0031308  # the transfer's segment boundary
     img[0, 2] = -0.25  # negative radiance clamps to 0
     return img
+
+
+def _random_image(h, w, seed=0):
+    return np.random.default_rng(seed).integers(0, 256, (h, w, 3), dtype=np.uint8)
+
+
+def _tonemap(linear, standard=False):
+    """The film's tonemap (`Film.to_srgb8`) of a linear image."""
+    return color.quantize_to_8bit(color.srgb_encode(torch.from_numpy(linear), standard)).numpy()
+
+
+@pytest.fixture
+def native():
+    if not jnative.available():
+        pytest.skip("the JAX package's native library did not build (no g++ or zlib)")
+    return jnative
 
 
 def _films(linear, count=4):
@@ -53,9 +75,45 @@ class TestPng:
         with pytest.raises(ValueError):
             encode_png(np.zeros((4, 4, 3), np.float32))
 
-    def test_bytes_equal_jax_python_encoder(self):
+    @pytest.mark.parametrize("level", [1, 6, 9])
+    def test_bytes_equal_jax_python_encoder(self, level):
         img = np.random.default_rng(1).integers(0, 256, (9, 13, 3), dtype=np.uint8)
-        assert encode_png(img) == jpng.encode_png(img)
+        assert encode_png(img, level) == jpng.encode_png(img, level)
+
+
+class TestAgainstJaxNative:
+    @pytest.mark.parametrize("shape", [(33, 47), (64, 48), (1, 1)])
+    @pytest.mark.parametrize("level", [1, 6, 9])
+    def test_encode_bytes_equal_native(self, native, shape, level):
+        img = _random_image(*shape, seed=level)
+        assert encode_png(img, level) == native.encode_png(img, compress_level=level)
+
+    def test_write_png_file_equals_native(self, native, tmp_path):
+        img = _random_image(33, 47, seed=4)
+        write_png(str(tmp_path / "port.png"), img)
+        assert native.write_png(str(tmp_path / "native.png"), img)
+        assert (tmp_path / "port.png").read_bytes() == (tmp_path / "native.png").read_bytes()
+
+    def test_film_png_is_the_native_encode_of_its_tonemap(self, native, tmp_path):
+        film = Film(24, 16)
+        film.add_samples(np.random.default_rng(5).random((16, 24, 3)).astype(np.float32) * 4, 4)
+        path = tmp_path / "film.png"
+        film.save_png(str(path))
+        assert path.read_bytes() == native.encode_png(film.to_srgb8())
+
+    @pytest.mark.parametrize("standard", [False, True])
+    def test_tonemap_within_one_count_of_native(self, native, standard):
+        linear = np.random.default_rng(3).random((64, 64, 3), np.float32) * 1.5  # > 1 too
+        linear[0, 0] = 0.0
+        linear[0, 1] = 0.0031308  # the transfer's segment boundary
+        diff = np.abs(_tonemap(linear, standard).astype(int)
+                      - native.srgb_quantize(linear, standard=standard).astype(int))
+        assert diff.max() <= 1 and (diff > 0).mean() < 0.01
+
+    def test_negative_radiance_tonemaps_to_zero(self, native):
+        linear = np.array([[[-0.5, -1e-9, 0.0]]], np.float32)
+        assert np.array_equal(_tonemap(linear), np.zeros((1, 1, 3), np.uint8))
+        assert np.array_equal(native.srgb_quantize(linear), _tonemap(linear))
 
 
 class TestFilm:

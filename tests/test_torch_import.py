@@ -54,7 +54,7 @@ def test_jax_is_really_blocked(tmp_path):
         "cornelis_tpu_torch.__main__",
         "cornelis_tpu_torch.ops.megakernel",
         "cornelis_tpu_torch.ops.build",
-        "cornelis_tpu_torch.ops.dynamic",
+        "cornelis_tpu_torch.ops.draws",
         "cornelis_tpu_torch.ops.lights",
         "cornelis_tpu_torch.ops.warm",
         "cornelis_tpu_torch.probes.scene_table",
@@ -72,7 +72,7 @@ def test_jax_is_really_blocked(tmp_path):
         "cornelis_tpu_torch.cli",
         "cornelis_tpu_torch.render",
         "cornelis_tpu_torch.film",
-        "cornelis_tpu_torch.native",
+        "cornelis_tpu_torch.utils.trace",
         "cornelis_tpu_torch.math.linalg",
         "cornelis_tpu_torch.utils.logging",
     ],

@@ -18,7 +18,8 @@ raises, so the exit code is not 0 and no result line is printed:
      returning its disc) built beside them, whose SASS must be the
      production kernel's but for the root (scan_designs.quad_root_difference),
      and K3's counting build (megakernel_nee.cu with CORNELIS_WALK_COUNTS,
-     whose sphere walk tallies its tests), which must not spill either;
+     whose sphere walk tallies its tests and whose light-table reads
+     tally their rows), which must not spill either;
      K3's resident blocks an SM by the launch's own query on Cornell and
      sphere_grid(512), at least K3_BLOCKS there;
      then the warm-up path (K2):
@@ -79,9 +80,11 @@ raises, so the exit code is not 0 and no result line is printed:
      chunk and no table launch, the edited frame held the same way);
      K3's counting build on Cornell, sphere_grid(512) (512x512, 32 spp) and
      a 128x128 chunk of sphere_grid(2200): the sphere and box tests a
-     lane's and a warp's scan run, and the share of rows culled, its rays
+     lane's and a warp's scan run, and the share of rows culled, the
+     light-table rows a lane and a warp read a pickup and a pick, its rays
      bit for bit the production K3's, and at sphere_grid(512) a closest-hit
-     scan testing at most K3_SPHERE_SHARE of the rows; the
+     scan testing at most K3_SPHERE_SHARE of the rows, a pickup reading one
+     row and a pick's search at most ceil(log2(rows)); the
      table kernel's own entry, light_table_dyn, on
      Cornell; the two probes' command lines (K5 and K6, K4);
   5. times: each instantiation and K3 for one 32-spp chunk at 512x512
@@ -460,8 +463,9 @@ def sass_listings(libraries: dict) -> dict:
 def build_walk_counts() -> dict:
     """K3's counting build: csrc/megakernel_nee.cu with CORNELIS_WALK_COUNTS,
     compiled with the nee library's flags into a library of its own under
-    _build/designs/, whose sphere walk tallies its tests (the production
-    build counts nothing). Its path and its ptxas report."""
+    _build/designs/, whose sphere walk tallies its tests and whose reads of
+    the light table their rows (the production build counts nothing). Its
+    path and its ptxas report."""
     from cornelis_tpu_torch.ops import build
 
     out_dir = build.BUILD_DIR / "designs"
@@ -481,6 +485,10 @@ def build_walk_counts() -> dict:
 # runs a test once for all its lanes that take it).
 WALK_FIELDS = ("scans", "sphere_tests", "box_tests", "warp_scans", "warp_sphere_tests",
                "warp_box_tests")
+# Then its tallies a light-table read (emission_pickup, sample_light's pick):
+# the lanes' calls and rows read, the warps' calls and rows (the most rows
+# a lane of the warp read in the call).
+ROW_FIELDS = ("calls", "rows", "warp_calls", "warp_rows")
 
 
 def walk_tallies(counting: dict, tables, key, size: int, spp: int):
@@ -488,8 +496,10 @@ def walk_tallies(counting: dict, tables, key, size: int, spp: int):
     max_depth 64) through the counting build: per scan kind the lanes'
     scans, their mean sphere and box tests, the share of sphere rows they
     did not test, and the mean tests a warp ran a warp's scan (the linear
-    scan runs every row once a warp's scan); and the chunk's radiance,
-    which must be the production K3's."""
+    scan runs every row once a warp's scan); per light-table read
+    ("pickup", "pick") the lanes' calls, the rows a call read, a lane's
+    and a warp's, and the most a lane read in one call; and the chunk's
+    radiance, which must be the production K3's."""
     import ctypes
 
     import torch
@@ -498,7 +508,7 @@ def walk_tallies(counting: dict, tables, key, size: int, spp: int):
 
     lib = ctypes.CDLL(counting["so"])
     entry = megakernel._set_argtypes(lib.cornelis_megakernel_nee_dynamic, False)
-    buf = (ctypes.c_ulonglong * 12)()
+    buf = (ctypes.c_ulonglong * 20)()
     check(lib.cornelis_walk_counts(buf) == 0, "the counting build's tallies failed")
     k0, k1, root = key
     out = torch.empty((size * size * spp, 3), dtype=torch.float32, device="cuda")
@@ -519,6 +529,13 @@ def walk_tallies(counting: dict, tables, key, size: int, spp: int):
             "culled_share": 1.0 - c["sphere_tests"] / scans / n if n else 0.0,
             "warp_sphere_tests_a_warp_scan": c["warp_sphere_tests"] / warp_scans,
             "warp_box_tests_a_warp_scan": c["warp_box_tests"] / warp_scans,
+        }
+    for k, site in enumerate(("pickup", "pick")):
+        c = dict(zip(ROW_FIELDS, buf[12 + 4 * k:16 + 4 * k]))
+        tallies[site] = {
+            "calls": c["calls"], "warp_calls": c["warp_calls"],
+            "rows_a_call": c["rows"] / max(c["calls"], 1),
+            "warp_rows_a_warp_call": c["warp_rows"] / max(c["warp_calls"], 1),
         }
     return tallies, out
 
@@ -2516,19 +2533,33 @@ def main() -> int:
         hold_bitwise(f"  K3's counting build on {scene_name} against the production K3", counted,
                      production)
         n_spheres = walk_tables.spheres.shape[0]
-        for kind, t in tallies.items():
+        for kind in ("closest", "shadow"):
+            t = tallies[kind]
             print(f"K3's sphere walk on {scene_name} ({n_spheres} spheres, {size}x{size}, "
                   f"{spp_chunk} spp), {kind} scans: {t['scans']}; a lane's scan tests "
                   f"{t['sphere_tests_a_scan']:.3f} spheres and {t['box_tests_a_scan']:.3f} boxes "
                   f"(culled share of the rows {t['culled_share']:.4f}); a warp's scan runs "
                   f"{t['warp_sphere_tests_a_warp_scan']:.3f} sphere and "
                   f"{t['warp_box_tests_a_warp_scan']:.3f} box tests ({t['warp_scans']} warp scans)")
+        n_rows = n_spheres + walk_tables.planes.shape[0]
+        for site in ("pickup", "pick"):
+            t = tallies[site]
+            print(f"K3's light-table {site}s on {scene_name} ({n_rows} rows): {t['calls']} by "
+                  f"lanes, {t['warp_calls']} by warps; a lane's reads {t['rows_a_call']:.3f} rows, "
+                  f"a warp's {t['warp_rows_a_warp_call']:.3f}")
         walk_record[scene_name] = tallies
         del counted, production
     share = walk_record["sphere_grid(512)"]["closest"]["sphere_tests_a_scan"] / 513
     check(share <= K3_SPHERE_SHARE,
           f"K3's closest-hit scans test {share:.2%} of sphere_grid(512)'s rows, over "
           f"{K3_SPHERE_SHARE:.0%}")
+    pickup, pick = walk_record["sphere_grid(512)"]["pickup"], walk_record["sphere_grid(512)"]["pick"]
+    check(pickup["calls"] > 0 and pickup["warp_rows_a_warp_call"] == 1.0,
+          "K3's emission_pickup reads other than the hit's one row at sphere_grid(512)")
+    steps = math.ceil(math.log2(514))
+    check(pick["calls"] > 0 and pick["warp_rows_a_warp_call"] <= steps,
+          f"K3's pick reads {pick['warp_rows_a_warp_call']:.3f} rows a warp's search at "
+          f"sphere_grid(512), over ceil(log2(514)) = {steps}")
     records[kernel_name("dynamic", "nee", "sobol")]["walk"] = walk_record
 
     # The table kernel's own entry point: light_table_dyn on Cornell.

@@ -129,8 +129,9 @@ __device__ __forceinline__ void row_of(const Scene& s, int r, float* row) {
 }
 
 // total, then each row's prob = power / total and the running cum, in row
-// order (one thread).
-__device__ __forceinline__ void normalise(float* rows, int n) {
+// order (one thread). Returns whether the cum column never falls (a NaN
+// cum stays NaN): false only where a negative power makes it fall.
+__device__ __forceinline__ bool normalise(float* rows, int n) {
   float total = 0.0f;
   for (int r0 = 0; r0 < n; r0 += AHEAD) {
     float p[AHEAD];
@@ -142,6 +143,7 @@ __device__ __forceinline__ void normalise(float* rows, int n) {
   }
   const float inv_total = __fdiv_rn(1.0f, jmax(total, (float)1e-30));
   float cum = 0.0f;
+  bool ordered = true;
   for (int r0 = 0; r0 < n; r0 += AHEAD) {
     float p[AHEAD];
 #pragma unroll
@@ -150,12 +152,15 @@ __device__ __forceinline__ void normalise(float* rows, int n) {
     for (int k = 0; k < AHEAD; ++k) {
       if (r0 + k < n) {
         const float prob = mul(p[k], inv_total);
-        cum = add(cum, prob);
+        const float next = add(cum, prob);
+        ordered = ordered && !(next < cum);
+        cum = next;
         rows[COLS * (r0 + k)] = prob;
         rows[COLS * (r0 + k) + 1] = cum;
       }
     }
   }
+  return ordered;
 }
 
 // 16 x max(every emission channel, 1), each maximum in material order as
@@ -170,16 +175,21 @@ __device__ __forceinline__ float clamp_base(const Scene& s) {
 
 // Writes the (n_spheres + n_planes, COLS) table to `rows` and the clamp
 // base to `*clamp`, thread `tid` of the block's `threads` (every thread of
-// the block calls it: it holds a block barrier). A scene the block itself
-// wrote needs a barrier before the call; the writes are the block's to
-// read after its next barrier.
+// the block calls it: it holds a block barrier); and, unless null, 1 to
+// `*ordered` where the cum column never falls, else 0 (the megakernel then
+// searches the column). A scene the block itself wrote needs a barrier
+// before the call; the writes are the block's to read after its next
+// barrier.
 template <class Scene>
 __device__ __forceinline__ void build(const Scene& s, float* rows, float* clamp, int tid,
-                                      int threads) {
+                                      int threads, float* ordered = nullptr) {
   const int n = s.n_spheres + s.n_planes;
   for (int r = tid; r < n; r += threads) row_of(s, r, rows + COLS * r);
   __syncthreads();
-  if (tid == 0) normalise(rows, n);
+  if (tid == 0) {
+    const bool rising = normalise(rows, n);
+    if (ordered) *ordered = rising ? 1.0f : 0.0f;
+  }
   if (tid == (threads > 32 ? 32 : 0)) *clamp = clamp_base(s);
 }
 

@@ -135,11 +135,13 @@
 // The walk never culls on tmin; a degenerate direction tests no sphere,
 // for which sphere_t returns +inf.
 //
-// What bounds K3 after it (PERF.md): at sphere_grid(512) a lane's
-// closest-hit scan tests about 9 spheres and 15 boxes, a warp's about 45
-// and 27, against 513 rows; the two loops over the 514-row light table
-// (sample_light's pick and emission_pickup) and the bounce's fixed work
-// now outweigh the scans.
+// What bounds K3 now (PERF.md): its two walks. At sphere_grid(512) a
+// lane's closest-hit scan tests about 9 spheres and 15 boxes, but a warp
+// runs about 45 and 27 for its lanes (their rays part ways: divergence),
+// and the shadow walk runs beside it. The light table no longer weighs:
+// emission_pickup reads the hit's own row and sample_light's pick
+// searches the cum column in about log2(rows) reads (pick_row), where
+// each looped over all 514 rows.
 //
 // The SDF arithmetic rounds every operation on its own (__fmul_rn,
 // __fadd_rn, __fsqrt_rn, __fdiv_rn), whatever -fmad says: the tetrahedron
@@ -206,12 +208,16 @@ constexpr unsigned CHUNK = 2 * BLOCK;
 constexpr int SMEM_CAP = 64 * 1024;
 constexpr int SMEM_DEFAULT = 48 * 1024;
 // The tables' expanded layout: a header (camera 12 floats, the NEE clamp
-// base), then each table at a 16-byte aligned offset. A plane row is four
+// base, and in K3 its table's CUM_ORDERED flag), then each table at a
+// 16-byte aligned offset. A plane row is four
 // float4: (n, w), (point, h), (t, material), (b, 0) with (t, b) its
 // construct_basis tangents; an SDF row five: (kind, c), (p0..p3),
 // (material, R0..R2), (R3..R6), (R7, R8, scale, 1/scale); spheres are
 // float4 (c, r) rows followed by their materials.
 constexpr int HEADER = 16;
+// The header's float that K3's table build sets to 1 where its cum column
+// never falls (light_table::build), else 0; K1 leaves it unwritten.
+constexpr int CUM_ORDERED = 13;
 constexpr int PLANE_ROW = 16, SDF_ROW = 20;  // floats of a plane and an SDF row in it
 
 // Blocks per SM that each instantiation's __launch_bounds__ asks for: the
@@ -558,7 +564,8 @@ __device__ __forceinline__ void stage(const Launch& L) {
     const light_table::Rows scene{L.spheres.rows, L.spheres.n,   L.planes.rows,
                                   L.planes.n,     L.materials.rows, L.materials.n};
     if (blockIdx.x == 0)
-      light_table::build(scene, dst + L.lights.at, dst + 12, threadIdx.x, BLOCK);
+      light_table::build(scene, dst + L.lights.at, dst + 12, threadIdx.x, BLOCK,
+                         dst + CUM_ORDERED);
     if (blockIdx.x == gridDim.x - 1) {
       float* region = dst + walk::region_at(L);
       walk::build(scene, L.spheres.n, region,
@@ -927,13 +934,17 @@ __device__ __forceinline__ V3 sdf_normal(const Launch& L, int k, int kind, V3 p,
 
 // ---- K3's walk of the sphere hierarchy --------------------------------------
 
-// What the walk tested, in the counting build (CORNELIS_WALK_COUNTS) only:
-// per lane, and per warp (the warp runs a test once for all its lanes that
-// take it). The production build counts nothing.
+// What the walk tested and which light-table rows K3 read, in the counting
+// build (CORNELIS_WALK_COUNTS) only: per lane, and per warp (the warp runs
+// a test once for all its lanes that take it). The production build counts
+// nothing.
 #ifdef CORNELIS_WALK_COUNTS
 // Per scan kind (0 closest hit, 1 shadow): the lanes' scans, sphere tests
-// and box tests, then the warps' scans, sphere tests and box tests.
-__device__ unsigned long long walk_counts[12];
+// and box tests, then the warps' scans, sphere tests and box tests. Then
+// per light-table read (0 emission_pickup, 1 sample_light's pick): the
+// lanes' calls and the rows they read, then the warps' calls and rows (the
+// most rows a lane of the warp read in the call: the steps the warp ran).
+__device__ unsigned long long walk_counts[20];
 
 struct Tally {
   unsigned spheres = 0, boxes = 0, warp_spheres = 0, warp_boxes = 0;
@@ -953,10 +964,33 @@ struct Tally {
     }
   }
 };
+
+struct RowTally {
+  unsigned rows = 0;
+  __device__ __forceinline__ void row() { ++rows; }
+  __device__ __forceinline__ void flush(int site) {
+    const unsigned mask = __activemask();
+    const bool leader = Tally::first_lane();
+    const unsigned lanes = __reduce_add_sync(mask, 1u), sum = __reduce_add_sync(mask, rows);
+    const unsigned most = __reduce_max_sync(mask, rows);
+    unsigned long long* c = walk_counts + 12 + 4 * site;
+    if (leader) {
+      atomicAdd(c, (unsigned long long)lanes);
+      atomicAdd(c + 1, (unsigned long long)sum);
+      atomicAdd(c + 2, 1ull);
+      atomicAdd(c + 3, (unsigned long long)most);
+    }
+  }
+};
 #else
 struct Tally {
   __device__ __forceinline__ void sphere() {}
   __device__ __forceinline__ void box() {}
+  __device__ __forceinline__ void flush(int) {}
+};
+
+struct RowTally {
+  __device__ __forceinline__ void row() {}
   __device__ __forceinline__ void flush(int) {}
 };
 #endif
@@ -1318,29 +1352,76 @@ __device__ __forceinline__ float clamp_at_depth(float base, int depth) {
   return base * expf((float)excess * LOG_INV_RR);
 }
 
+// The density with which light sampling picks row r's emitter, for a
+// BSDF-sampled ray from o along d that hit it at distance t.
+__device__ __forceinline__ float pickup_density(const Launch& L, int r, V3 o, V3 d, float t) {
+  const float pr = light(L, r, COL_PROB);
+  const float g0 = light(L, r, COL_G), g1 = light(L, r, COL_G + 1), g2 = light(L, r, COL_G + 2);
+  if (light(L, r, COL_KIND) < 0.5f) {
+    const float dx = g0 - o.x, dy = g1 - o.y, dz = g2 - o.z;
+    const float d2 = dx * dx + dy * dy + dz * dz;
+    const float sin2max = jmin(jmax(light(L, r, COL_R2) / jmax(d2, FLOOR_12), 0.0f), 1.0f);
+    const float cos_max = sqrtf(jmax(1.0f - sin2max, 0.0f));
+    const float cand = pr / (TWO_PI * jmax(1.0f - cos_max, FLOOR_9));
+    return d2 > light(L, r, COL_R2_EDGE) ? cand : 0.0f;
+  }
+  // Area -> solid angle at the hit distance: pr t^2 / (A |cos|).
+  const float cos_l = fabsf(d.x * g0 + d.y * g1 + d.z * g2);
+  return pr * t * t / (light(L, r, COL_AREA) * jmax(cos_l, FLOOR_6));
+}
+
 // The density with which light sampling picks the emitter a BSDF-sampled
-// ray from o along d hit at distance t (prim), 0 off the table. The rows
-// are scanned as the JAX select chain is: the last row of that prim wins.
+// ray from o along d hit at distance t (prim), 0 off the table. DYN: K3's
+// table holds prim r in row r (light_table::row_of), one row a prim, so
+// the hit's own row is read. K1's host table drops zero-power rows, so its
+// rows are scanned as the JAX select chain is: the last row of that prim
+// wins.
+template <bool DYN>
 __device__ __forceinline__ float emission_pickup(const Launch& L, V3 o, V3 d, float t, int prim) {
+  RowTally tally;
   float p_light = 0.0f;
-  for (int r = 0; r < L.lights.n; ++r) {
-    if ((int)light(L, r, COL_PRIM) != prim) continue;
-    const float pr = light(L, r, COL_PROB);
-    const float g0 = light(L, r, COL_G), g1 = light(L, r, COL_G + 1), g2 = light(L, r, COL_G + 2);
-    if (light(L, r, COL_KIND) < 0.5f) {
-      const float dx = g0 - o.x, dy = g1 - o.y, dz = g2 - o.z;
-      const float d2 = dx * dx + dy * dy + dz * dz;
-      const float sin2max = jmin(jmax(light(L, r, COL_R2) / jmax(d2, FLOOR_12), 0.0f), 1.0f);
-      const float cos_max = sqrtf(jmax(1.0f - sin2max, 0.0f));
-      const float cand = pr / (TWO_PI * jmax(1.0f - cos_max, FLOOR_9));
-      p_light = d2 > light(L, r, COL_R2_EDGE) ? cand : 0.0f;
-    } else {
-      // Area -> solid angle at the hit distance: pr t^2 / (A |cos|).
-      const float cos_l = fabsf(d.x * g0 + d.y * g1 + d.z * g2);
-      p_light = pr * t * t / (light(L, r, COL_AREA) * jmax(cos_l, FLOOR_6));
+  if (DYN) {
+    if (prim >= 0 && prim < L.lights.n) {
+      tally.row();
+      p_light = pickup_density(L, prim, o, d, t);
+    }
+  } else {
+    for (int r = 0; r < L.lights.n; ++r) {
+      tally.row();
+      if ((int)light(L, r, COL_PRIM) != prim) continue;
+      p_light = pickup_density(L, r, o, d, t);
     }
   }
+  tally.flush(0);
   return p_light;
+}
+
+// The row sample_light picks: the last row whose predecessor's cum is
+// below u_sel, 0 if none. Where the cum column never falls (a NaN stays
+// NaN: the total was NaN), `cum[j] < u_sel` holds on a prefix of the rows,
+// and that row is the prefix's length over rows 0..n-2: DYN finds it by a
+// binary search in place, about log2 n rows read. K3's table build flags
+// the column (CUM_ORDERED); a column that falls (a negative emission)
+// and K1's tables, of two rows at most in the cells, take the scan.
+template <bool DYN>
+__device__ __forceinline__ int pick_row(const Launch& L, float u_sel) {
+  RowTally tally;
+  int r = 0;
+  if (DYN && tables(L)[CUM_ORDERED] != 0.0f) {
+    const int m = L.lights.n - 1;
+    for (int step = m > 0 ? 1 << (31 - __clz(m)) : 0; step > 0; step >>= 1) {
+      if (r + step > m) continue;
+      tally.row();
+      if (light(L, r + step - 1, COL_CUM) < u_sel) r += step;
+    }
+  } else {
+    for (int i = 1; i < L.lights.n; ++i) {
+      tally.row();
+      r = u_sel > light(L, i - 1, COL_CUM) ? i : r;
+    }
+  }
+  tally.flush(1);
+  return r;
 }
 
 struct LightSample {
@@ -1349,13 +1430,13 @@ struct LightSample {
   bool valid;
 };
 
-// Pick a row by the cumulative table (the last row whose predecessor's cum
-// is below u_sel) and sample a direction toward it from p: a uniform cone
-// for a sphere, a uniform point for a plane (two-sided).
+// Pick a row by the cumulative table (pick_row) and sample a direction
+// toward it from p: a uniform cone for a sphere, a uniform point for a
+// plane (two-sided).
+template <bool DYN>
 __device__ __forceinline__ LightSample sample_light(const Launch& L, V3 p, float u_sel, float ul1,
                                                     float ul2) {
-  int r = 0;
-  for (int i = 1; i < L.lights.n; ++i) r = u_sel > light(L, i - 1, COL_CUM) ? i : r;
+  const int r = pick_row<DYN>(L, u_sel);
   const float lpr = light(L, r, COL_PROB);
   float g[8];
 #pragma unroll
@@ -1453,7 +1534,7 @@ __device__ __forceinline__ bool bounce(const Launch& L, Path& P, float clamp_bas
   if (sample_lights && P.depth > 0) {
     // MIS against light sampling, and the depth-aware clamp; the camera's
     // own sighting of an emitter (depth 0) is neither.
-    const float p_light = emission_pickup(L, P.o, P.d, h.t, h.prim);
+    const float p_light = emission_pickup<DYN>(L, P.o, P.d, h.t, h.prim);
     const float w = P.prev_pdf / jmax(P.prev_pdf + p_light, FLOOR_12);
     const float cl = clamp_at_depth(clamp_base, P.depth);
     contrib = v3(jmin(contrib.x * w, cl), jmin(contrib.y * w, cl), jmin(contrib.z * w, cl));
@@ -1472,7 +1553,7 @@ __device__ __forceinline__ bool bounce(const Launch& L, Path& P, float clamp_bas
     float u_sel, ul1, ul2, spare;
     draw_pair<SOBOL>(L, P.s, stream, 2u, u_sel, ul1);
     draw_pair<SOBOL>(L, P.s, stream, 3u, ul2, spare);
-    const LightSample ls = sample_light(L, h.p, u_sel, ul1, ul2);
+    const LightSample ls = sample_light<DYN>(L, h.p, u_sel, ul1, ul2);
     const float cos_surf = dot(ls.wi, h.n);
     // The light's contribution before the RR decision, as in the JAX
     // kernel; the shadow ray only where it can be non-zero.
@@ -1529,7 +1610,7 @@ __device__ __forceinline__ void trace(const Launch& L) {
       walk::build(staged, L.spheres.n, cornelis_smem + walk::region_at(L),
                   reinterpret_cast<uint32_t*>(cornelis_smem + L.lights.at), threadIdx.x, BLOCK);
       light_table::build(staged, cornelis_smem + L.lights.at, cornelis_smem + 12, threadIdx.x,
-                         BLOCK);
+                         BLOCK, cornelis_smem + CUM_ORDERED);
     }
   }
   if (threadIdx.x == 0) {
@@ -1851,11 +1932,11 @@ extern "C" int cornelis_megakernel_nee_dynamic_occupancy(int n_spheres, int n_pl
 }
 
 #ifdef CORNELIS_WALK_COUNTS
-// The counting build's tallies since the last call (walk_counts' twelve
+// The counting build's tallies since the last call (walk_counts' twenty
 // counters, in its order) into `out`, and zeroes them.
 extern "C" int cornelis_walk_counts(unsigned long long* out) {
   cudaError_t err = cudaMemcpyFromSymbol(out, walk_counts, sizeof(walk_counts));
-  const unsigned long long zero[12] = {};
+  const unsigned long long zero[20] = {};
   if (err == cudaSuccess) err = cudaMemcpyToSymbol(walk_counts, zero, sizeof(walk_counts));
   return (int)err;
 }

@@ -130,10 +130,13 @@ def test_cuda_light_table_matches_plain_version(cuda, scene):
 
 
 @pytest.mark.parametrize("sampler", ["uniform", "sobol"])
-@pytest.mark.parametrize("scene", ["cornell_box", "sphere_grid(512)", "sphere_grid(2200)"])
+@pytest.mark.parametrize("scene", CASE_NAMES)
 def test_cuda_dynamic_nee_builds_its_table_in_the_launch(cuda, scene, sampler):
     # One launch a chunk and no table launch; the image bit for bit that of
-    # K1's nee instantiation fed light_table_dyn_reference's table.
+    # K1's nee instantiation fed light_table_dyn_reference's table. K1 scans
+    # the table where K3 reads the hit's row and searches the cum column,
+    # so the cases' flat runs of zero-probability rows, NaN columns and the
+    # column that falls hold K3's pick to the scan's row.
     # sphere_grid(2200)'s tables (2202 light rows, ~158 KB) go through the
     # staging kernel, whose block 0 builds the table.
     tables = table_case(scene, "cuda")
@@ -147,7 +150,7 @@ def test_cuda_dynamic_nee_builds_its_table_in_the_launch(cuda, scene, sampler):
     want = megakernel.render_chunk(tables, key_row(5), 4,
                                    lights=lights.light_table_dyn_reference(tables), **kw)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    assert got.sum() > 0
+    assert bool((got != 0).any()) == (scene != "cornell_no_emission")
 
 
 @pytest.mark.parametrize("mode", ["path", "nee"])

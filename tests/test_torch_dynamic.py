@@ -97,7 +97,7 @@ def _pseudo(tables):
 @pytest.mark.parametrize(
     "name",
     ["cornell_box", "cornell_panel", "mixed_panel", "sphere_grid(64)", "cornell_neg0_emission",
-     "cornell_inf_nan_unused", "cornell_odd_ids", "cornell_no_emission"],
+     "cornell_inf_nan_unused", "cornell_odd_ids", "cornell_no_emission", "cornell_neg_emission"],
 )
 def test_light_table_dyn_equals_jax_rows(name):
     if name in ("cornell_box", "cornell_panel", "mixed_panel"):
